@@ -6,25 +6,34 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build   — compiles the CUDA kernels under ``depth_estimation_tpu_torch/csrc/``;
-3. kernel  — each kernel against its plain PyTorch version at the main path's
-   shapes: max abs error (asserted within the stated tolerance), kernel,
-   plain and library device times (CUDA events, median of 25 runs of 10
-   calls), and the bound (the larger of bytes over 3.35 TB/s and FLOPs over
-   the peak rate of the input type);
+2. build   — compiles the CUDA kernels under ``depth_estimation_tpu_torch/csrc/``
+   (one ``nvcc`` per source, all started together);
+3. kernel  — each kernel against its plain PyTorch version at the main
+   paths' shapes: max abs error (asserted within the stated tolerance),
+   kernel, plain and library device times (CUDA events, median of 25 runs of
+   10 calls), and the bound (the larger of bytes over 3.35 TB/s and FLOPs
+   over the peak rate of the input type). K4 (grouped 3×3 conv) runs at the
+   four MiDaS v2.1 conv2 shapes in f32 and bf16, timed in f32;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
-   .avi, per frame and with ``microbatch=4``; the kernels' launch counts are
-   zeroed before and read after each run and asserted;
+   .avi, per frame and with ``microbatch=4``, each after one untimed batch
+   of its size (set-up); the kernels' launch counts are zeroed before and
+   read after each run and asserted;
 5. hold    — the same weights on a ``device="cpu"`` estimator (plain paths) on
    a 240×320 frame: max |gpu - cpu| / max |cpu| < 1e-3, the package's
    accuracy gate (BASELINE.md:23);
-6. profile — one 480×640 frame program at a time: host-clock ms per frame,
-   then torch.profiler's device busy time per frame and its largest kernels;
+6. profile — one 480×640 frame program at a time: host-clock ms per program,
+   then torch.profiler's device busy time per program and its largest kernels;
 7. bf16    — the opt-in bfloat16 mode on the same weights: finite, within 5%
-   of the f32 map's range, and its host-clock ms per frame.
+   of the f32 map's range, and its host-clock ms per frame;
+8. midas_stream, midas_hold, midas_profile, midas_bf16 — phases 4–7 for
+   ``DepthEstimator("MiDaS")`` (v2.1 Large: ResNeXt-101 32x8d, full width),
+   whose frame program launches K4 30 times and attention never (profiled
+   at batch 1 and at the stream's microbatch of 4); its bf16
+   bound is 0.1, the JAX package's own (tests/test_midas_v21.py).
 
-Then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
+Then the kernel table as one JSON line (each kernel's launches on its own
+path's per-frame stream), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
 phase. It imports nothing of JAX or of the JAX package.
 """
@@ -147,11 +156,42 @@ def check_resize(gen, in_hw, out_hw):
     return row
 
 
-def run_stream(est, out_path, microbatch):
+MIDAS_CONV2_SHAPES = {"layer1": (256, 48, 64), "layer2": (512, 24, 32), "layer3": (1024, 12, 16),
+                      "layer4": (2048, 6, 8)}  # (C, H, W) at a 192×256 network input, G = 32
+
+
+def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
+    from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3, grouped_conv3x3_plain
+
+    c, h, w = MIDAS_CONV2_SHAPES[layer]
+    cg = c // groups
+    x = torch.randn((1, c, h, w), generator=gen, device="cuda").to(dtype)
+    k = (torch.randn((c, cg, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * cg)).to(dtype)
+    got, ref = grouped_conv3x3(x, k, groups), grouped_conv3x3_plain(x, k, groups)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
+          f"grouped conv {layer} {dtype}: max abs err {err} over atol {tol} rtol {tol}")
+    lib = lambda: F.conv2d(x, k, padding=1, groups=groups)  # noqa: E731
+    row = {"layer": layer, "shape": [1, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
+           "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item()}
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        bnd, by = bound_ms((2 * x.numel() + k.numel()) * elem, 2 * h * w * c * cg * 9, dtype)
+        row.update(ms=time_ms(lambda: grouped_conv3x3(x, k, groups)),
+                   plain_ms=time_ms(lambda: grouped_conv3x3_plain(x, k, groups)),
+                   library_ms=time_ms(lib),
+                   bound_ms=bnd, bound_by=by)
+    emit("kernel", name="grouped_conv3x3", **row)
+    return row
+
+
+def run_stream(est, out_path, microbatch, per_program, phase="stream"):
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.runtime.stream import VidStream
 
     vs = VidStream(est, f"synthetic:{FRAMES}x480x640", out_path, verbose=False, microbatch=microbatch)
+    est.predict_batch(np.zeros((microbatch, 480, 640, 3), np.uint8))  # set-up (cuDNN plans) for this batch
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -160,45 +200,89 @@ def run_stream(est, out_path, microbatch):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     programs = math.ceil(FRAMES / microbatch)
-    want = {"multi_head_attention": 24 * programs, "fused_preprocess": programs, "resize_planes": programs}
-    check(counts == want, f"launch counts {counts} != {want} (microbatch={microbatch})")
+    want = {name: n * programs for name, n in per_program.items()}
+    check(counts == want, f"{phase}: launch counts {counts} != {want} (microbatch={microbatch})")
     check(os.path.getsize(out_path) > 0, f"{out_path} is empty")
     s = vs.timer.summary()["depth"]
     check(s["frames"] == FRAMES, f"stream wrote {s['frames']} frames, expected {FRAMES}")
-    emit("stream", microbatch=microbatch, frames=FRAMES, p50_ms=s["p50_ms"], p90_ms=s["p90_ms"],
+    emit(phase, model=est.model_type, microbatch=microbatch, frames=FRAMES, p50_ms=s["p50_ms"], p90_ms=s["p90_ms"],
          fps_completion=s["fps_completion"], ms_per_frame=1e3 / s["fps_completion"],
          wall_fps=FRAMES / wall, launches=counts,
          avi_bytes=os.path.getsize(out_path))
     return counts
 
 
-def profile_frames(est, frame, n=8):
+def profile_frames(est, frame, phase="profile", batch=1, n=8):
+    """Frame programs of ``batch`` copies of ``frame``, one at a time: host-clock
+    ms per program, then torch.profiler's device busy time and largest kernels."""
+    imgs = np.stack([frame] * batch)
+    program = est._batched_fn(frame.shape[:2], "u8")
     for _ in range(2):
-        est.predict(frame)
+        program(imgs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        est.predict_device_u8(frame)
+        program(imgs)
     torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) / n * 1e3
+    program_ms = (time.perf_counter() - t0) / n * 1e3
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            est.predict_device_u8(frame)
+            program(imgs)
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / n / 1e3
-    emit("profile", src_hw=list(frame.shape[:2]), frame_ms=frame_ms, device_busy_ms_per_frame=busy_ms,
-         device_idle_share=max(0.0, 1 - busy_ms / frame_ms),
-         top=[{"kernel": k[:100], "ms_per_frame": t / n / 1e3, "calls_per_frame": c / n}
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), batch=batch, program_ms=program_ms,
+         frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
+         device_idle_share=max(0.0, 1 - busy_ms / program_ms),
+         top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
+
+
+def hold(est, net_cfg, phase="hold"):
+    """The same weights through the plain paths on the CPU, on a 240×320 frame."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
+    from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+
+    _, frame = SyntheticSource(1, 240, 320).read()
+    gpu = est.predict(frame)
+    cpu_est = DepthEstimator(est.model_type, params={k: v.cpu() for k, v in est.model.state_dict().items()},
+                             device="cpu", verbose=False)
+    t0 = time.perf_counter()
+    cpu = cpu_est.predict(frame)
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(gpu - cpu).max()) / scale
+    check(gpu.shape == cpu.shape == (240, 320), f"{phase}: depth shapes {gpu.shape} {cpu.shape}")
+    check(np.isfinite(gpu).all() and scale > 0, f"{phase}: depth map not finite or all zero")
+    check(rel < 1e-3, f"{phase}: gpu vs cpu max abs-rel {rel} >= 1e-3")
+    emit(phase, model=est.model_type, src_hw=[240, 320], net_hw=list(compute_resize_shape(240, 320, net_cfg)),
+         max_abs_rel=rel, depth_max=scale, nonzero_share=float((cpu != 0).mean()), cpu_seconds=cpu_s)
+
+
+def bf16_mode(est, frame, bound, phase="bf16"):
+    """The opt-in bfloat16 mode, no parity gate: finite and within ``bound``
+    of the f32 map's range; host-clock ms per frame."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+
+    est16 = DepthEstimator(est.model_type, params=est.model.state_dict(), dtype="bfloat16", verbose=False)
+    d32, d16 = est.predict(frame), est16.predict(frame)
+    rel16 = float(np.abs(d32 - d16).max() / np.abs(d32).max())
+    check(np.isfinite(d16).all() and rel16 < bound, f"{phase}: bf16 vs f32 max abs-rel {rel16} over {bound}")
+    t0 = time.perf_counter()
+    for _ in range(8):
+        est16.predict_device_u8(frame)
+    torch.cuda.synchronize()
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16,
+         frame_ms=(time.perf_counter() - t0) / 8 * 1e3)
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 1
-    from depth_estimation_tpu_torch.config import DPT_PREPROCESS
+    from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS
     from depth_estimation_tpu_torch.device import full_f32
     from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.ops.kernels import build
@@ -230,53 +314,48 @@ def main():
         pre = check_preprocess(frames[:1], net_hw, DPT_PREPROCESS, timed=True)
         check_preprocess(frames, net_hw, DPT_PREPROCESS, timed=False)
         rsz = check_resize(gen, net_hw, (480, 640))
+        # K4 is timed at every conv2 shape; the table's row is layer 3, with 22 of its 30 launches a frame
+        gconv = {layer: check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=True)
+                 for layer in MIDAS_CONV2_SHAPES}
+        for layer in MIDAS_CONV2_SHAPES:
+            check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=False)
 
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
+    dpt_per_program = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_stream(est, os.path.join(tmp, "depth.avi"), 1)
-        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH)
-
-    _, frame = SyntheticSource(1, 240, 320).read()
-    gpu = est.predict(frame)
-    cpu_est = DepthEstimator("DPT_Large", params={k: v.cpu() for k, v in est.model.state_dict().items()},
-                             device="cpu", verbose=False)
-    t0 = time.perf_counter()
-    cpu = cpu_est.predict(frame)
-    cpu_s = time.perf_counter() - t0
-    scale = float(np.abs(cpu).max())
-    rel = float(np.abs(gpu - cpu).max()) / scale
-    check(gpu.shape == cpu.shape == (240, 320), f"depth shapes {gpu.shape} {cpu.shape}")
-    check(np.isfinite(gpu).all() and scale > 0, "depth map not finite or all zero")
-    check(rel < 1e-3, f"gpu vs cpu max abs-rel {rel} >= 1e-3")
-    emit("hold", src_hw=[240, 320], net_hw=list(compute_resize_shape(240, 320, DPT_PREPROCESS)),
-         max_abs_rel=rel, depth_max=scale, cpu_seconds=cpu_s)
-
+        launches = run_stream(est, os.path.join(tmp, "depth.avi"), 1, dpt_per_program)
+        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH, dpt_per_program)
+    hold(est, DPT_PREPROCESS)
     frame = SyntheticSource(1, 480, 640).read()[1]
     profile_frames(est, frame)
+    bf16_mode(est, frame, 0.05)
 
-    # bf16: the opt-in speed mode, no parity gate; 5% of the map's range as a sanity bound
-    est16 = DepthEstimator("DPT_Large", params=est.model.state_dict(), dtype="bfloat16", verbose=False)
-    d32, d16 = est.predict(frame), est16.predict(frame)
-    rel16 = float(np.abs(d32 - d16).max() / np.abs(d32).max())
-    check(np.isfinite(d16).all() and rel16 < 0.05, f"bf16 vs f32 max abs-rel {rel16}")
-    t0 = time.perf_counter()
-    for _ in range(8):
-        est16.predict_device_u8(frame)
-    torch.cuda.synchronize()
-    emit("bf16", src_hw=[480, 640], max_abs_rel_vs_f32=rel16, frame_ms=(time.perf_counter() - t0) / 8 * 1e3)
+    midas = DepthEstimator("MiDaS", seed=0, device="cuda")
+    check(compute_resize_shape(480, 640, SMALL_PREPROCESS) == (192, 256), "MiDaS network input")
+    midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
+                         "grouped_conv3x3": 30}
+    with tempfile.TemporaryDirectory() as tmp:
+        midas_launches = run_stream(midas, os.path.join(tmp, "midas.avi"), 1, midas_per_program, "midas_stream")
+        run_stream(midas, os.path.join(tmp, "midas_mb.avi"), MICROBATCH, midas_per_program, "midas_stream")
+    hold(midas, SMALL_PREPROCESS, "midas_hold")
+    profile_frames(midas, frame, "midas_profile")
+    profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, n=2)
+    bf16_mode(midas, frame, 0.1, "midas_bf16")
 
-    def entry(name, source, replaces, row):
+    def entry(name, source, replaces, row, path_launches):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], **{k: row[k] for k in keys}}
+                "launches": path_launches[name], **{k: row[k] for k in keys}}
 
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
-              "depth_estimation_tpu/ops/pallas/attention.py:34", att),
+              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:44", pre),
+              "depth_estimation_tpu/ops/pallas/resize.py:44", pre, launches),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz),
+              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz, launches),
+        entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
+              "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ ported path are hand-written CUDA kernels (``csrc/``), each with a plain
 PyTorch version that runs on the CPU. Entry points run on ``cuda`` unless
 the caller asks for ``device="cpu"``.
 
-Ported so far: the depth-only video path with ``DPT_Large``
-(``DepthEstimator``, ``VidStream``, ``python -m depth_estimation_tpu_torch``).
+Ported so far: the depth-only video path (``DepthEstimator``, ``VidStream``,
+``python -m depth_estimation_tpu_torch``) with ``DPT_Large`` and ``MiDaS``
+(v2.1 Large).
 """
 
 from depth_estimation_tpu_torch.estimator import DepthEstimator

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from depth_estimation_tpu_torch.device import full_f32, resolve_device
+from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
@@ -39,13 +40,14 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Deterministic random weights for ``model`` from ``seed``, made on the
     CPU so that every device gets the same ones. Pipeline-valid and
     numerically meaningless: weights ~ N(0, 1/fan_in), biases ~ N(0, 0.02²),
-    LayerNorm at identity, embeddings ~ N(0, 0.02²)."""
+    LayerNorm and frozen batch norm at identity, embeddings ~ N(0, 0.02²).
+    Covers buffers too, since the model is built on the meta device."""
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for prefix, mod in model.named_modules():
-        for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, nn.LayerNorm):
-                v = torch.ones(p.shape) if name == "weight" else torch.zeros(p.shape)
+        for name, p in [*mod.named_parameters(recurse=False), *mod.named_buffers(recurse=False)]:
+            if isinstance(mod, (nn.LayerNorm, FrozenBatchNorm2d)):
+                v = torch.ones(p.shape) if name in ("weight", "running_var") else torch.zeros(p.shape)
             elif name == "weight" and p.dim() >= 2:
                 fan_in = p.shape[0] if isinstance(mod, nn.ConvTranspose2d) else p[0].numel()
                 v = torch.randn(p.shape, generator=g) / math.sqrt(fan_in)
@@ -53,6 +55,14 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
                 v = 0.02 * torch.randn(p.shape, generator=g)
             sd[f"{prefix}.{name}" if prefix else name] = v
     return sd
+
+
+def _unread_hub_key(key: str) -> bool:
+    """Keys a hub checkpoint carries that the forward never reads, skipped
+    by the JAX converters too: BatchNorm's step counters and the top fusion
+    block's first unit, which never gets a skip input. Any other missing or
+    unexpected key makes the strict load raise."""
+    return key.endswith(".num_batches_tracked") or key.startswith("scratch.refinenet4.resConfUnit1.")
 
 
 class DepthEstimator:
@@ -66,7 +76,8 @@ class DepthEstimator:
         device="cuda",
     ):
         """params: a state dict with the torch-hub key names (tensors or
-        numpy arrays); None means random weights from ``seed``.
+        numpy arrays), such as a hub checkpoint; None means random weights
+        from ``seed``.
         dtype: 'float32' (parity with the reference) or 'bfloat16'.
         device: 'cuda' by default; 'cpu' must be asked for, and runs the
         kernels' plain PyTorch versions."""
@@ -92,7 +103,7 @@ class DepthEstimator:
         model = model.to_empty(device=self.device)
         model.load_state_dict(
             {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
-             for k, v in params.items()})
+             for k, v in params.items() if not _unread_hub_key(k)})
         self.model = model.to(self.dtype).eval()
 
     # -- frame program --------------------------------------------------------

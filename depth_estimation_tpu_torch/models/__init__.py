@@ -1,1 +1,1 @@
-"""DPT-Large and the MiDaS decoder blocks it shares, on PyTorch."""
+"""DPT-Large, MiDaS v2.1 Large and the MiDaS decoder blocks they share, on PyTorch."""

@@ -1,7 +1,8 @@
-"""The MiDaS decoder blocks that DPT shares (JAX ``models/midas_small.py``).
+"""The MiDaS decoder blocks that DPT and MiDaS v2.1 share (JAX ``models/midas_small.py``).
 
-Only what ``models/dpt.py`` imports is ported so far: ``ResidualConvUnit``,
-``FeatureFusionBlock`` and ``UpsampleConv3x3``. NCHW, hub module names.
+Only what ``models/dpt.py`` and ``models/midas_v21.py`` import is ported so
+far: ``upsample2x``, ``ResidualConvUnit``, ``FeatureFusionBlock`` and
+``UpsampleConv3x3``. NCHW, hub module names.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 """
 
 from depth_estimation_tpu_torch.ops.kernels.attention import multi_head_attention
+from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 
-WRAPPERS = (multi_head_attention, fused_preprocess, resize_planes)
+WRAPPERS = (multi_head_attention, fused_preprocess, resize_planes, grouped_conv3x3)
 
 
 def reset_launch_counts() -> None:

@@ -2,9 +2,9 @@
 
 Names match the reference (depth_midas.py:10-16) and the JAX package's
 registry. The port's modules keep the torch-hub state-dict key names, so a
-hub checkpoint loads with ``load_state_dict`` and no converter is needed.
-Only ``DPT_Large`` is ported so far; the other families raise until their
-slice lands.
+hub checkpoint loads as ``DepthEstimator(params=...)`` and no converter is
+needed. ``DPT_Large`` and ``MiDaS`` (v2.1 Large) are ported so far; the
+other families raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -28,6 +28,12 @@ def _make_dpt_large():
     return DPT(DPT_LARGE)
 
 
+def _make_midas_v21():
+    from depth_estimation_tpu_torch.models.midas_v21 import MIDAS_V21, MidasV21
+
+    return MidasV21(MIDAS_V21)
+
+
 def _not_yet_ported():
     raise NotImplementedError("not yet ported")
 
@@ -37,7 +43,7 @@ _REGISTRY: Dict[str, ModelEntry] = {
     "DPT_Hybrid": ModelEntry("DPT_Hybrid", _not_yet_ported, DPT_PREPROCESS),
     "MiDaS_small": ModelEntry("MiDaS_small", _not_yet_ported, SMALL_PREPROCESS),
     # the reference's non-DPT branch gives "MiDaS" small_transform too
-    "MiDaS": ModelEntry("MiDaS", _not_yet_ported, SMALL_PREPROCESS),
+    "MiDaS": ModelEntry("MiDaS", _make_midas_v21, SMALL_PREPROCESS),
 }
 
 

@@ -1,14 +1,17 @@
 """JAX parameter tree → the port's state dict.
 
-The port's modules keep the torch-hub key names, so this is the inverse of
-the JAX package's ``utils/convert.py::convert_dpt`` (hub state dict → Flax
-params). It lets both packages run on the same weights.
+The port's modules keep the torch-hub key names, so these are the inverses
+of the JAX package's ``utils/convert.py::convert_dpt`` and
+``::convert_midas_v21`` (hub state dict → Flax params). They let both
+packages run on the same weights.
 
 Layout rules (inverse of the JAX converter's):
   conv kernel        (kH, kW, I, O) → (O, I, kH, kW)   (patch embed included)
   dense kernel       (in, out)      → (out, in)
   conv-transpose     (kH, kW, I, O) → (I, O, kH, kW), spatially flipped
+  grouped conv       (kH, kW, I/G, O) → (O, I/G, kH, kW)
   layer norm         scale/bias     → weight/bias
+  frozen batch norm  scale/bias/mean/var → weight/bias/running_mean/running_var
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.models.dpt import DPT_LARGE, DPTConfig
+from depth_estimation_tpu_torch.models.midas_v21 import MIDAS_V21, MidasV21Config
 
 
 def f2t_conv(k) -> np.ndarray:
@@ -47,6 +51,17 @@ def _dense(sd: Dict, prefix: str, p: Mapping) -> None:
 def _ln(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.weight"] = p["scale"]
     sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _bn(sd: Dict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = p["scale"]
+    sd[f"{prefix}.bias"] = p["bias"]
+    sd[f"{prefix}.running_mean"] = p["mean"]
+    sd[f"{prefix}.running_var"] = p["var"]
+
+
+def _to_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def params_from_jax(params: Mapping, cfg: DPTConfig = DPT_LARGE) -> Dict[str, torch.Tensor]:
@@ -89,4 +104,38 @@ def params_from_jax(params: Mapping, cfg: DPTConfig = DPT_LARGE) -> Dict[str, to
         _conv(sd, f"scratch.refinenet{i}.out_conv", rn["out_conv"])
     for i in (0, 2, 4):
         _conv(sd, f"scratch.output_conv.{i}", p[f"output_conv_{i}"])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_tensors(sd)
+
+
+def resnext_hub_prefix(layer: int, block: int) -> str:
+    """Hub key prefix of ResNeXt bottleneck ``block`` of ``layer``: layer 1's
+    blocks follow the stem inside ``pretrained.layer1`` at slot 4."""
+    return f"pretrained.layer1.4.{block}" if layer == 1 else f"pretrained.layer{layer}.{block}"
+
+
+def params_from_jax_midas_v21(params: Mapping, cfg: MidasV21Config = MIDAS_V21) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.MidasV21`` (numpy leaves, with or
+    without the outer ``"params"`` key) → the port's MidasV21 ``state_dict``."""
+    p = params.get("params", params)
+    enc = p["pretrained"]
+    sd: Dict = {}
+    _conv(sd, "pretrained.layer1.0", enc["conv1"], bias=False)
+    _bn(sd, "pretrained.layer1.1", enc["bn1"])
+    for li, depth in enumerate(cfg.depths, start=1):
+        for bi in range(depth):
+            blk, pre = enc[f"layer{li}_block{bi}"], resnext_hub_prefix(li, bi)
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", blk[f"conv{i}"], bias=False)
+                _bn(sd, f"{pre}.bn{i}", blk[f"bn{i}"])
+            if bi == 0:
+                _conv(sd, f"{pre}.downsample.0", blk["downsample_conv"], bias=False)
+                _bn(sd, f"{pre}.downsample.1", blk["downsample_bn"])
+    for i in (1, 2, 3, 4):
+        _conv(sd, f"scratch.layer{i}_rn", p[f"layer{i}_rn"], bias=False)
+        rn = p[f"refinenet{i}"]
+        for unit in ("resConfUnit1", "resConfUnit2") if i != 4 else ("resConfUnit2",):
+            _conv(sd, f"scratch.refinenet{i}.{unit}.conv1", rn[unit]["conv1"])
+            _conv(sd, f"scratch.refinenet{i}.{unit}.conv2", rn[unit]["conv2"])
+    for i in (0, 2, 4):
+        _conv(sd, f"scratch.output_conv.{i}", p[f"output_conv_{i}"])
+    return _to_tensors(sd)

@@ -14,6 +14,7 @@ import torch
 from depth_estimation_tpu_torch.config import DPT_PREPROCESS
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +76,61 @@ def test_resize_kernel_matches_plain(cuda, gen, method, align_corners, in_hw, ou
     assert trsz.resize_planes.launches == before + 1
     ref = trsz.resize_planes_plain(x, out_hw, method, align_corners)
     torch.testing.assert_close(got, ref, atol=3e-5, rtol=0)
+
+
+# MiDaS v2.1's stride-1 conv2s at a 480×640 source (192×256 network input), G = 32
+MIDAS_CONV2_SHAPES = [(256, 48, 64), (512, 24, 32), (1024, 12, 16), (2048, 6, 8)]
+
+
+def _grouped_inputs(gen, b, c, h, w, g, dtype, device):
+    x = torch.randn((b, c, h, w), generator=gen, device=device).to(dtype)
+    k = (torch.randn((c, c // g, 3, 3), generator=gen, device=device) / (9 * c // g) ** 0.5).to(dtype)
+    return x, k
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("c,h,w", MIDAS_CONV2_SHAPES, ids=["layer1", "layer2", "layer3", "layer4"])
+def test_grouped_conv_kernel_matches_plain(cuda, gen, c, h, w, batch, dtype, tol):
+    x, k = _grouped_inputs(gen, batch, c, h, w, 32, dtype, cuda)
+    before = tgc.grouped_conv3x3.launches
+    got = tgc.grouped_conv3x3(x, k, 32)
+    torch.cuda.synchronize()
+    assert tgc.grouped_conv3x3.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    # the same f32 products in another order; bf16 rounds both once at the end
+    torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, 32).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)], ids=["f32", "bf16"])
+def test_grouped_conv_kernel_odd_small_shape(cuda, gen, dtype, tol):
+    """C/G = 2 and odd H, W: the tiles' ragged edges and a channel tile wider than the group."""
+    x, k = _grouped_inputs(gen, 2, 8, 5, 7, 4, dtype, cuda)
+    got = tgc.grouped_conv3x3(x, k, 4)
+    torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, 4).float(), atol=tol, rtol=tol)
+
+
+def test_grouped_conv_kernel_counts_each_launch(cuda, gen):
+    x, k = _grouped_inputs(gen, 1, 64, 9, 11, 8, torch.float32, cuda)
+    before = tgc.grouped_conv3x3.launches
+    for i in range(3):
+        tgc.grouped_conv3x3(x, k, 8)
+        assert tgc.grouped_conv3x3.launches == before + i + 1
+
+
+def test_grouped_conv_kernel_refuses(cuda, gen):
+    x, k = _grouped_inputs(gen, 1, 64, 8, 8, 8, torch.float32, cuda)
+    before = tgc.grouped_conv3x3.launches
+    with pytest.raises(ValueError, match="weight shape"):
+        tgc.grouped_conv3x3(x, k[:, :4].contiguous(), 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        tgc.grouped_conv3x3(x, k, 7)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgc.grouped_conv3x3(x.half(), k.half(), 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tgc.grouped_conv3x3(x, k.bfloat16(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgc.grouped_conv3x3(x.transpose(2, 3), k, 8)
+    with pytest.raises(ValueError, match="weight on"):
+        tgc.grouped_conv3x3(x, k.cpu(), 8)
+    assert tgc.grouped_conv3x3.launches == before

@@ -152,7 +152,7 @@ def test_random_init_warns_and_is_seeded(estimators):
 def test_model_type_errors():
     with pytest.raises(ValueError, match="unknown model_type"):
         DepthEstimator("NoSuchModel", verbose=False, device="cpu")
-    for name in ("DPT_Hybrid", "MiDaS_small", "MiDaS"):
+    for name in ("DPT_Hybrid", "MiDaS_small"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             DepthEstimator(name, verbose=False, device="cpu")
 
