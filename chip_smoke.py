@@ -12,7 +12,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    paths' shapes: max abs error (asserted within the stated tolerance),
    kernel, plain and library device times (CUDA events, median of 25 runs of
    10 calls), and the bound (the larger of bytes over 3.35 TB/s and FLOPs
-   over the peak rate of the input type). K4 (grouped 3×3 conv) runs at the
+   over the peak rate of the route: K1 f32 runs 3xTF32 on the tensor cores,
+   three TF32 products for each f32 one at 495 TFLOP/s, and its f32-FMA
+   bound is kept beside it; otherwise the rate of the input type). K1 is
+   checked in f32 at (1|4, 16, 769, 64) and (1, 16, 577, 64) and timed in
+   f32 and bf16 at (1, 16, 769, 64); K4 (grouped 3×3 conv) runs at the
    four MiDaS v2.1 conv2 shapes in f32 and bf16, timed in f32;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
@@ -53,6 +57,7 @@ import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # f32 FMA units; bf16 dense tensor cores
+PEAK_TF32 = 495e12  # dense TF32 tensor cores
 FRAMES = 16
 MICROBATCH = 4
 SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's boost clock
@@ -88,8 +93,8 @@ def time_ms(fn, reps=25, inner=10):
     return statistics.median(times)
 
 
-def bound_ms(nbytes, flops, dtype=torch.float32):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes, flops, peak=PEAK_FLOPS[torch.float32]):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -107,8 +112,14 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
           f"attention {dtype} {(b, h, n, d)}: max abs err {err} over atol {atol} rtol {rtol}")
     row = {"shape": [b, h, n, d], "dtype": str(dtype), "max_abs_err": err, "atol": atol, "rtol": rtol}
     if timed:
-        elem = torch.finfo(dtype).bits // 8
-        bnd, by = bound_ms(4 * b * h * n * d * elem, 4 * b * h * n * n * d, dtype)
+        nbytes, flops = 4 * b * h * n * d * (torch.finfo(dtype).bits // 8), 4 * b * h * n * n * d
+        if dtype == torch.float32:  # three TF32 products for each f32 one
+            bnd, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
+            row.update(bound_peak="3xTF32 tensor cores, 495 TFLOP/s",
+                       fma_bound_ms=bound_ms(nbytes, flops, PEAK_FLOPS[dtype])[0])
+        else:
+            bnd, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+            row.update(bound_peak="bf16 tensor cores, 989 TFLOP/s")
         row.update(ms=time_ms(lambda: multi_head_attention(q, k, v)),
                    plain_ms=time_ms(lambda: attention_plain(q, k, v)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
@@ -177,7 +188,7 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
            "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item()}
     if timed:
         elem = torch.finfo(dtype).bits // 8
-        bnd, by = bound_ms((2 * x.numel() + k.numel()) * elem, 2 * h * w * c * cg * 9, dtype)
+        bnd, by = bound_ms((2 * x.numel() + k.numel()) * elem, 2 * h * w * c * cg * 9, PEAK_FLOPS[dtype])
         row.update(ms=time_ms(lambda: grouped_conv3x3(x, k, groups)),
                    plain_ms=time_ms(lambda: grouped_conv3x3_plain(x, k, groups)),
                    library_ms=time_ms(lib),
@@ -309,8 +320,9 @@ def main():
     with full_f32():
         att = check_attention(gen, 1, 16, 769, torch.float32, 2e-5, 1e-4, timed=True)
         check_attention(gen, 1, 16, 577, torch.float32, 2e-5, 1e-4, timed=False)
+        check_attention(gen, MICROBATCH, 16, 769, torch.float32, 2e-5, 1e-4, timed=False)
         # bf16: the kernel keeps P in f32 where the plain version rounds it to bf16
-        check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
+        att16 = check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=True)
         pre = check_preprocess(frames[:1], net_hw, DPT_PREPROCESS, timed=True)
         check_preprocess(frames, net_hw, DPT_PREPROCESS, timed=False)
         rsz = check_resize(gen, net_hw, (480, 640))
@@ -342,14 +354,17 @@ def main():
     profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, n=2)
     bf16_mode(midas, frame, 0.1, "midas_bf16")
 
-    def entry(name, source, replaces, row, path_launches):
+    def entry(name, source, replaces, row, path_launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": path_launches[name], **{k: row[k] for k in keys}}
+                "launches": path_launches[name], **{k: row[k] for k in keys}, **extra}
 
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
-              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches),
+              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
+              bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
+              bf16_plain_ms=att16["plain_ms"], bf16_library_ms=att16["library_ms"],
+              bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"]),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre, launches),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",

@@ -2,8 +2,22 @@
 
 Replaces ``depth_estimation_tpu/ops/pallas/attention.py::_flash_kernel``
 (:34, launched by ``_flash_attention_padded``, dispatched by
-``multi_head_attention``). The kernel is ``csrc/attention.cu``; its source
-note gives the bound (f32 operations at DPT_Large's shapes) and the design.
+``multi_head_attention``). The kernel is ``csrc/attention.cu``; its input
+type alone picks the route:
+
+* float32 runs on the tensor cores as 3xTF32: every operand is split into a
+  TF32 high part and a TF32 remainder, and lo·hi + hi·lo + hi·hi is
+  accumulated in f32 with ``mma.sync.m16n8k8``, so it holds the plain
+  version like f32 arithmetic does (one TF32 pass would not). Bound: three
+  times the products' FLOPs at the 495 TFLOP/s TF32 rate. K/V tiles are
+  staged with ``cp.async`` into two buffers, so q, k and v must have
+  16-byte aligned data pointers and (batch, head, row) strides that are
+  multiples of 4 elements; the wrapper raises ``ValueError`` otherwise.
+  P stays in registers between the two products: the key index is permuted
+  within each 8-key chunk of P and of V (the source note gives the fragment
+  layouts), which leaves P·V unchanged.
+* bfloat16 runs on the FMA units, widened to f32. Bound: the products'
+  FLOPs at the 67 TFLOP/s f32 rate.
 
 ``attention_plain`` is the plain PyTorch version with the semantics of the
 JAX package's ``_attention_xla``: f32 logits, softmax, probabilities cast to
@@ -55,6 +69,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must lie on one device")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous along the head dimension")
+    if q.dtype == torch.float32:
+        for name, t in zip("qkv", (q, k, v)):
+            # a stride of a size-1 axis is never used by the kernel
+            strides = [s for s, size in zip(t.stride()[:3], t.shape[:3]) if size > 1]
+            if t.data_ptr() % 16 or any(s % 4 for s in strides):
+                raise ValueError(
+                    f"{name} is not aligned for the float32 kernel's 16-byte copies: data pointer at "
+                    f"{t.data_ptr() % 16} bytes past a 16-byte boundary, strides {t.stride()} (the "
+                    f"batch, head and row strides must be multiples of 4 elements)")
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -62,7 +85,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
     CPU tensors take ``attention_plain``. CUDA tensors launch the kernel,
     which reads q, k and v through their strides (the last axis must be
-    contiguous) and needs D = 64."""
+    contiguous; float32 also needs the alignment above) and needs D = 64."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":

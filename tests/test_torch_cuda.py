@@ -48,6 +48,47 @@ def test_attention_kernel_matches_plain(cuda, gen, n, dtype, tol):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
 
 
+@pytest.mark.parametrize("b,n,q_scale", [(1, 1, 1.0), (1, 16, 1.0), (1, 64, 1.0), (1, 128, 1.0), (4, 769, 1.0),
+                                         (2, 769, 4.0)])
+def test_attention_f32_kernel_tiles_and_batch(cuda, gen, b, n, q_scale):
+    """Less than one tile, exact multiples of the 64-key tile, the stream's
+    microbatch of 4, and logits of std 4 whose row max moves across tiles."""
+    qkv = torch.randn((b, n, 3, 16, 64), generator=gen, device=cuda).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0] * q_scale, qkv[1], qkv[2]
+    got = tatt.multi_head_attention(q, k, v)
+    torch.testing.assert_close(got, tatt.attention_plain(q, k, v), atol=2e-5, rtol=1e-4)
+
+
+def test_attention_f32_kernel_large_logits(cuda, gen):
+    """q scaled by 30: logits of std 30, so every tile rescales the running
+    max and sum by factors near 0. At that size f32 itself lands some 4e-5
+    from the exact result (the rounding of logits near 100), so the kernel
+    and the plain version are both held against a float64 evaluation: the
+    kernel within twice the plain version's distance, as f32 arithmetic."""
+    qkv = torch.randn((1, 769, 3, 16, 64), generator=gen, device=cuda).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0] * 30, qkv[1], qkv[2]
+    exact = torch.softmax(q.double() @ k.double().transpose(-1, -2) / 8, dim=-1) @ v.double()
+    got = tatt.multi_head_attention(q, k, v)
+    plain_err = (tatt.attention_plain(q, k, v).double() - exact).abs().max().item()
+    assert (got.double() - exact).abs().max().item() <= max(2 * plain_err, 2e-5)
+
+
+def test_attention_f32_kernel_refuses_unaligned(cuda, gen):
+    base = torch.randn((1, 2, 16, 66), generator=gen, device=cuda)
+    flat = torch.randn(1 + 2 * 16 * 64, generator=gen, device=cuda)
+    before = tatt.multi_head_attention.launches
+    row_stride_66 = base[..., :64]
+    offset_pointer = flat[1:].view(1, 2, 16, 64)
+    for bad in (row_stride_66, offset_pointer):
+        with pytest.raises(ValueError, match="aligned"):
+            tatt.multi_head_attention(bad, bad, bad)
+    assert tatt.multi_head_attention.launches == before
+    # bf16 keeps the FMA kernel, which has no alignment rule
+    odd = base.bfloat16()[..., :64]
+    tatt.multi_head_attention(odd, odd, odd)
+    assert tatt.multi_head_attention.launches == before + 1
+
+
 def test_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim 64"):
