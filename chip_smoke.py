@@ -7,16 +7,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build   — compiles the CUDA kernels under ``depth_estimation_tpu_torch/csrc/``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) and gives ptxas's
+   registers and spills for each kernel function;
 3. kernel  — each kernel against its plain PyTorch version at the main
    paths' shapes: max abs error (asserted within the stated tolerance),
    kernel, plain and library device times (CUDA events, median of 25 runs of
-   10 calls), and the bound (the larger of bytes over 3.35 TB/s and FLOPs
+   10 calls; for K1 also the library's kernel, as torch.profiler names it),
+   and the bound (the larger of bytes over 3.35 TB/s and FLOPs
    over the peak rate of the route: K1 f32 runs 3xTF32 on the tensor cores,
    three TF32 products for each f32 one at 495 TFLOP/s, and its f32-FMA
    bound is kept beside it; otherwise the rate of the input type). K1 is
-   checked in f32 at (1|4, 16, 769, 64) and (1, 16, 577, 64) and timed in
-   f32 and bf16 at (1, 16, 769, 64); K4 (grouped 3×3 conv) runs at the
+   checked in f32 and in bf16 at (1|4, 16, 769, 64) and (1, 16, 577, 64)
+   and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) runs at the
    four MiDaS v2.1 conv2 shapes in f32 and bf16, timed in f32;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
@@ -27,13 +29,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    a 240×320 frame: max |gpu - cpu| / max |cpu| < 1e-3, the package's
    accuracy gate (BASELINE.md:23);
 6. profile — one 480×640 frame program at a time: host-clock ms per program,
-   then torch.profiler's device busy time per program and its largest kernels;
+   then torch.profiler's device busy time per program, K1's device ms and
+   calls per program, and the largest kernels;
 7. bf16    — the opt-in bfloat16 mode on the same weights: finite, within 5%
-   of the f32 map's range, and its host-clock ms per frame;
+   of the f32 map's range, its host-clock ms per frame and its K1 launches
+   (asserted: 24 a frame, all on the bf16 route); then bf16_profile, phase 6
+   for that bf16 estimator;
 8. midas_stream, midas_hold, midas_profile, midas_bf16 — phases 4–7 for
    ``DepthEstimator("MiDaS")`` (v2.1 Large: ResNeXt-101 32x8d, full width),
    whose frame program launches K4 30 times and attention never (profiled
-   at batch 1 and at the stream's microbatch of 4); its bf16
+   at batch 1 and at the stream's microbatch of 4, where no kernel may be
+   launched more than 2,000 times a program: cuDNN's heuristic once ran a
+   head conv there as an FFT of 33,024 launches); its bf16
    bound is 0.1, the JAX package's own (tests/test_midas_v21.py).
 
 Then the kernel table as one JSON line (each kernel's launches on its own
@@ -120,9 +127,13 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
         else:
             bnd, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
             row.update(bound_peak="bf16 tensor cores, 989 TFLOP/s")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(q, k, v)
+            torch.cuda.synchronize()
         row.update(ms=time_ms(lambda: multi_head_attention(q, k, v)),
                    plain_ms=time_ms(lambda: attention_plain(q, k, v)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   library_kernel=max(prof.key_averages(), key=lambda e: e.self_device_time_total).key[:120],
                    bound_ms=bnd, bound_by=by)
     emit("kernel", name="attention", **row)
     return row
@@ -197,7 +208,7 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
     return row
 
 
-def run_stream(est, out_path, microbatch, per_program, phase="stream"):
+def run_stream(est, out_path, microbatch, per_program, phase="stream", **extra):
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.runtime.stream import VidStream
 
@@ -219,13 +230,18 @@ def run_stream(est, out_path, microbatch, per_program, phase="stream"):
     emit(phase, model=est.model_type, microbatch=microbatch, frames=FRAMES, p50_ms=s["p50_ms"], p90_ms=s["p90_ms"],
          fps_completion=s["fps_completion"], ms_per_frame=1e3 / s["fps_completion"],
          wall_fps=FRAMES / wall, launches=counts,
-         avi_bytes=os.path.getsize(out_path))
-    return counts
+         avi_bytes=os.path.getsize(out_path), **extra)
+    return counts, s["fps_completion"]
 
 
-def profile_frames(est, frame, phase="profile", batch=1, n=8):
+K1_KERNELS = ("attention_f32_kernel", "attention_bf16_kernel")
+
+
+def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
     """Frame programs of ``batch`` copies of ``frame``, one at a time: host-clock
-    ms per program, then torch.profiler's device busy time and largest kernels."""
+    ms per program, then torch.profiler's device busy time, K1's share and the
+    largest kernels. With ``max_calls``, fails if any kernel entry is launched
+    more often than that in one program."""
     imgs = np.stack([frame] * batch)
     program = est._batched_fn(frame.shape[:2], "u8")
     for _ in range(2):
@@ -243,9 +259,16 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8):
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / n / 1e3
-    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), batch=batch, program_ms=program_ms,
-         frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
+    k1 = [r for r in rows if any(name in r[0] for name in K1_KERNELS)]
+    most = max(rows, key=lambda r: r[2])
+    if max_calls is not None:
+        check(most[2] / n <= max_calls,
+              f"{phase}: {most[0][:100]} launched {most[2] / n} times a program, over {max_calls}")
+    emit(phase, model=est.model_type, dtype=str(est.dtype), src_hw=list(frame.shape[:2]), batch=batch,
+         program_ms=program_ms, frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
          device_idle_share=max(0.0, 1 - busy_ms / program_ms),
+         k1_ms_per_program=sum(r[1] for r in k1) / n / 1e3, k1_calls_per_program=sum(r[2] for r in k1) / n,
+         most_calls={"kernel": most[0][:100], "calls_per_program": most[2] / n},
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
 
@@ -272,21 +295,30 @@ def hold(est, net_cfg, phase="hold"):
          max_abs_rel=rel, depth_max=scale, nonzero_share=float((cpu != 0).mean()), cpu_seconds=cpu_s)
 
 
-def bf16_mode(est, frame, bound, phase="bf16"):
+def bf16_mode(est, frame, bound, per_program, phase="bf16"):
     """The opt-in bfloat16 mode, no parity gate: finite and within ``bound``
-    of the f32 map's range; host-clock ms per frame."""
+    of the f32 map's range; host-clock ms per frame, over which the kernels'
+    launches must be ``per_program`` a frame. Returns the bf16 estimator."""
     from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
 
     est16 = DepthEstimator(est.model_type, params=est.model.state_dict(), dtype="bfloat16", verbose=False)
     d32, d16 = est.predict(frame), est16.predict(frame)
     rel16 = float(np.abs(d32 - d16).max() / np.abs(d32).max())
     check(np.isfinite(d16).all() and rel16 < bound, f"{phase}: bf16 vs f32 max abs-rel {rel16} over {bound}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(8):
         est16.predict_device_u8(frame)
     torch.cuda.synchronize()
-    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16,
-         frame_ms=(time.perf_counter() - t0) / 8 * 1e3)
+    frame_ms = (time.perf_counter() - t0) / 8 * 1e3
+    counts = kernels.launch_counts()
+    want = {name: 8 * n for name, n in per_program.items()}
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16, frame_ms=frame_ms,
+         launches=counts)
+    return est16
 
 
 def main():
@@ -308,9 +340,14 @@ def main():
 
     t0 = time.perf_counter()
     logs = build.build()
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-                for n, log in logs.items()})
+    ptxas = {}  # kernel function (mangled) -> ptxas's stack, spill and register lines
+    for log in logs.values():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ptxas.setdefault(ln.split("'")[1], [])
+            elif "registers" in ln or "spill" in ln:
+                fn.append(ln.replace("ptxas info    :", "").strip())
+    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     net_hw = compute_resize_shape(480, 640, DPT_PREPROCESS)
@@ -321,8 +358,10 @@ def main():
         att = check_attention(gen, 1, 16, 769, torch.float32, 2e-5, 1e-4, timed=True)
         check_attention(gen, 1, 16, 577, torch.float32, 2e-5, 1e-4, timed=False)
         check_attention(gen, MICROBATCH, 16, 769, torch.float32, 2e-5, 1e-4, timed=False)
-        # bf16: the kernel keeps P in f32 where the plain version rounds it to bf16
+        # bf16: the kernel rounds the unnormalised probabilities to bf16, the plain version the normalised ones
         att16 = check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=True)
+        check_attention(gen, 1, 16, 577, torch.bfloat16, 1e-2, 1e-2, timed=False)
+        check_attention(gen, MICROBATCH, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
         pre = check_preprocess(frames[:1], net_hw, DPT_PREPROCESS, timed=True)
         check_preprocess(frames, net_hw, DPT_PREPROCESS, timed=False)
         rsz = check_resize(gen, net_hw, (480, 640))
@@ -335,24 +374,26 @@ def main():
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
     dpt_per_program = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run_stream(est, os.path.join(tmp, "depth.avi"), 1, dpt_per_program)
-        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH, dpt_per_program)
+        launches, fps = run_stream(est, os.path.join(tmp, "depth.avi"), 1, dpt_per_program)
+        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH, dpt_per_program, per_frame_fps=fps)
     hold(est, DPT_PREPROCESS)
     frame = SyntheticSource(1, 480, 640).read()[1]
     profile_frames(est, frame)
-    bf16_mode(est, frame, 0.05)
+    profile_frames(bf16_mode(est, frame, 0.05, dpt_per_program), frame, "bf16_profile")
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
     check(compute_resize_shape(480, 640, SMALL_PREPROCESS) == (192, 256), "MiDaS network input")
     midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
                          "grouped_conv3x3": 30}
     with tempfile.TemporaryDirectory() as tmp:
-        midas_launches = run_stream(midas, os.path.join(tmp, "midas.avi"), 1, midas_per_program, "midas_stream")
-        run_stream(midas, os.path.join(tmp, "midas_mb.avi"), MICROBATCH, midas_per_program, "midas_stream")
+        midas_launches, fps = run_stream(midas, os.path.join(tmp, "midas.avi"), 1, midas_per_program,
+                                         "midas_stream")
+        run_stream(midas, os.path.join(tmp, "midas_mb.avi"), MICROBATCH, midas_per_program, "midas_stream",
+                   per_frame_fps=fps)
     hold(midas, SMALL_PREPROCESS, "midas_hold")
     profile_frames(midas, frame, "midas_profile")
-    profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, n=2)
-    bf16_mode(midas, frame, 0.1, "midas_bf16")
+    profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, max_calls=2000)
+    bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16")
 
     def entry(name, source, replaces, row, path_launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -363,7 +404,8 @@ def main():
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
-              bf16_plain_ms=att16["plain_ms"], bf16_library_ms=att16["library_ms"],
+              library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
+              bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
               bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"]),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre, launches),

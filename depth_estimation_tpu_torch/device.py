@@ -32,3 +32,22 @@ def full_f32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def conv_algorithms_by_timing():
+    """cuDNN chooses each convolution's algorithm by timing the candidates on
+    the first call at a shape (``torch.backends.cudnn.benchmark``), restored
+    on exit.
+
+    Without it, on an H100 with TF32 off, cuDNN's heuristic runs MiDaS v2.1's
+    first head conv (256→128, 3×3) at batch 4 as an FFT whose complex GEMM is
+    launched some 33,000 times, which made a frame five times slower at
+    batch 4 than at batch 1. Timing changes which algorithm runs, not the
+    type: f32 stays f32 under ``full_f32``."""
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev

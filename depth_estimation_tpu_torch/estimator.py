@@ -11,7 +11,9 @@ upsamples the depth map back to the source size (bicubic,
 align_corners=False, depth_midas.py:28-33). On the CPU the kernels' plain
 versions run instead. In float32 the program runs matmuls and convolutions
 in full f32 (``device.full_f32``); bfloat16 is an opt-in speed mode with no
-parity gate.
+parity gate. In either type cuDNN picks each convolution's algorithm by timing
+(``device.conv_algorithms_by_timing``); the first call at a new shape pays
+for the search.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from depth_estimation_tpu_torch.device import full_f32, resolve_device
+from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32, resolve_device
 from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
@@ -109,7 +111,11 @@ class DepthEstimator:
     # -- frame program --------------------------------------------------------
 
     def _numerics(self):
-        return full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(conv_algorithms_by_timing())
+        if self.dtype == torch.float32:
+            stack.enter_context(full_f32())
+        return stack
 
     def _to_device(self, imgs) -> torch.Tensor:
         if not isinstance(imgs, torch.Tensor):

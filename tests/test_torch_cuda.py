@@ -37,7 +37,8 @@ def gen(cuda):
                                          (65, torch.float32, 2e-5), (769, torch.bfloat16, 1e-2)])
 def test_attention_kernel_matches_plain(cuda, gen, n, dtype, tol):
     # strided q, k, v views of one fused projection, as the ViT gives them;
-    # bf16: the kernel keeps P in f32 where the plain version rounds it
+    # bf16: the kernel rounds the unnormalised probabilities to bf16, the
+    # plain version the normalised ones
     qkv = torch.randn((2, n, 3, 16, 64), generator=gen, device=cuda).to(dtype).permute(2, 0, 3, 1, 4)
     before = tatt.multi_head_attention.launches
     got = tatt.multi_head_attention(qkv[0], qkv[1], qkv[2])
@@ -57,6 +58,19 @@ def test_attention_f32_kernel_tiles_and_batch(cuda, gen, b, n, q_scale):
     q, k, v = qkv[0] * q_scale, qkv[1], qkv[2]
     got = tatt.multi_head_attention(q, k, v)
     torch.testing.assert_close(got, tatt.attention_plain(q, k, v), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,q_scale", [(1, 1, 1.0), (1, 16, 1.0), (1, 64, 1.0), (1, 65, 1.0), (1, 128, 1.0),
+                                         (1, 577, 1.0), (4, 769, 1.0), (2, 769, 4.0)])
+def test_attention_bf16_kernel_tiles_and_batch(cuda, gen, b, n, q_scale):
+    """The bf16 route at less than one 32-key tile, two tiles and one key
+    past them, exact multiples of the tile, DPT_Large at 384², the stream's
+    microbatch of 4, and logits of std 4 whose row max moves across tiles."""
+    qkv = torch.randn((b, n, 3, 16, 64), generator=gen, device=cuda).bfloat16().permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0] * q_scale, qkv[1], qkv[2]
+    got = tatt.multi_head_attention(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, 16, n, 64)
+    torch.testing.assert_close(got.float(), tatt.attention_plain(q, k, v).float(), atol=1e-2, rtol=1e-2)
 
 
 def test_attention_f32_kernel_large_logits(cuda, gen):
@@ -79,14 +93,13 @@ def test_attention_f32_kernel_refuses_unaligned(cuda, gen):
     before = tatt.multi_head_attention.launches
     row_stride_66 = base[..., :64]
     offset_pointer = flat[1:].view(1, 2, 16, 64)
-    for bad in (row_stride_66, offset_pointer):
+    # bf16 copies 8 elements at a time: a row stride of 68 (a multiple of 4) is refused too
+    row_stride_68 = torch.randn((1, 2, 16, 68), generator=gen, device=cuda).bfloat16()[..., :64]
+    bf16 = (base.bfloat16()[..., :64], flat.bfloat16()[1:].view(1, 2, 16, 64), row_stride_68)
+    for bad in (row_stride_66, offset_pointer, *bf16):
         with pytest.raises(ValueError, match="aligned"):
             tatt.multi_head_attention(bad, bad, bad)
     assert tatt.multi_head_attention.launches == before
-    # bf16 keeps the FMA kernel, which has no alignment rule
-    odd = base.bfloat16()[..., :64]
-    tatt.multi_head_attention(odd, odd, odd)
-    assert tatt.multi_head_attention.launches == before + 1
 
 
 def test_attention_kernel_refuses_other_head_dims(cuda):

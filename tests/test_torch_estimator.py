@@ -124,6 +124,26 @@ def test_bfloat16_estimator_close_to_f32(rng, estimators):
     assert np.abs(d32 - d16).max() / np.abs(d32).max() < 0.05
 
 
+def test_frame_program_numerics_set_and_restore_flags(estimators):
+    """f32 programs run without TF32; programs of either type let cuDNN pick
+    each conv's algorithm by timing (MiDaS at batch 4 fell to a slow FFT
+    under the heuristic); the flags are restored on exit."""
+    _, port = estimators
+    e16 = DepthEstimator(NAME, params=port.model.state_dict(), dtype="bfloat16", verbose=False, device="cpu")
+
+    def flags():
+        return (torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    before = flags()
+    with port._numerics():
+        assert flags() == (True, False, False)
+    assert flags() == before
+    with e16._numerics():
+        assert flags() == (True, *before[1:])
+    assert flags() == before
+
+
 def test_vidstream_prints_reference_frames(estimators, capsys):
     _, port = estimators
     sink = NullSink()

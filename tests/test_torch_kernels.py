@@ -230,15 +230,170 @@ def test_attention_alignment_rule_of_the_f32_route():
     """The f32 kernel's 16-byte copies need 16-byte aligned pointers and
     (batch, head, row) strides that are multiples of 4 elements: the ViT's
     fused qkv views pass, a 66-float row pitch or a pointer one float past a
-    boundary does not; bf16 has no such rule."""
+    boundary does not."""
     qkv = torch.zeros((2, 65, 3, 4, 64)).permute(2, 0, 3, 1, 4)
     tatt._check(qkv[0], qkv[1], qkv[2])
-    for dtype in (torch.float32, torch.bfloat16):
-        row_stride_66 = torch.zeros((1, 2, 16, 66), dtype=dtype)[..., :64]
-        offset_pointer = torch.zeros(1 + 2 * 16 * 64, dtype=dtype)[1:].view(1, 2, 16, 64)
-        for bad in (row_stride_66, offset_pointer):
-            if dtype == torch.float32:
-                with pytest.raises(ValueError, match="aligned"):
-                    tatt._check(bad, bad, bad)
+    tatt._check(*[torch.zeros((1, 2, 16, 68))[..., :64]] * 3)
+    row_stride_66 = torch.zeros((1, 2, 16, 66))[..., :64]
+    offset_pointer = torch.zeros(1 + 2 * 16 * 64)[1:].view(1, 2, 16, 64)
+    for bad in (row_stride_66, offset_pointer):
+        with pytest.raises(ValueError, match="aligned"):
+            tatt._check(bad, bad, bad)
+
+
+def test_attention_alignment_rule_of_the_bf16_route():
+    """The bf16 kernel's cp.async copies and ldmatrix reads move 16 bytes,
+    8 elements: 16-byte aligned pointers and (batch, head, row) strides that
+    are multiples of 8 elements. The ViT's fused qkv views pass (row stride
+    3·H·64); a 68-element row pitch, which float32 allows, does not, nor
+    does a pointer one or four elements past a boundary."""
+    qkv = torch.zeros((2, 65, 3, 4, 64), dtype=torch.bfloat16).permute(2, 0, 3, 1, 4)
+    tatt._check(qkv[0], qkv[1], qkv[2])
+    tatt._check(*[torch.zeros((1, 2, 16, 72), dtype=torch.bfloat16)[..., :64]] * 3)
+    flat = torch.zeros(4 + 2 * 16 * 64, dtype=torch.bfloat16)
+    for bad in (torch.zeros((1, 2, 16, pitch), dtype=torch.bfloat16)[..., :64] for pitch in (66, 68)):
+        with pytest.raises(ValueError, match="multiples of 8 elements"):
+            tatt._check(bad, bad, bad)
+    for bad in (flat[1:1 + 2 * 16 * 64].view(1, 2, 16, 64), flat[4:].view(1, 2, 16, 64)):
+        with pytest.raises(ValueError, match="aligned"):
+            tatt._check(bad, bad, bad)
+
+
+# The bf16 route (csrc/attention.cu): mma.sync.m16n8k16 fragments read with
+# ldmatrix, P handed from S's C fragments to P·V's A fragments in registers,
+# and the kernel's bf16 arithmetic.
+
+_LDH = 72  # the kernel's row pitch of a bf16 K/V tile, in elements
+_KEYS = 32  # keys a bf16 K/V tile (kKeys)
+
+
+def _mma_m16n8k16(a, b, c):
+    """One warp's mma.sync.m16n8k16 on per-lane fragments, as the PTX ISA
+    gives them for .bf16: a (32, 8) holds a0..a7, a0a1 (g, 2t..), a2a3 (g+8,
+    2t..), a4a5 (g, 2t+8..), a6a7 (g+8, 2t+8..); b (32, 4) holds b0..b3, b0b1
+    (2t.., g), b2b3 (2t+8.., g); c (32, 4) as for m16n8k8."""
+    am = torch.zeros((16, 16), dtype=a.dtype)
+    for i, (dr, dk) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
+        am[_G + dr, 2 * _T + dk], am[_G + dr, 2 * _T + dk + 1] = a[:, 2 * i], a[:, 2 * i + 1]
+    bm = torch.zeros((16, 8), dtype=b.dtype)
+    for i, dk in enumerate([0, 8]):
+        bm[2 * _T + dk, _G], bm[2 * _T + dk + 1, _G] = b[:, 2 * i], b[:, 2 * i + 1]
+    d = am @ bm
+    return c + torch.stack([d[_G, 2 * _T], d[_G, 2 * _T + 1], d[_G + 8, 2 * _T], d[_G + 8, 2 * _T + 1]], 1)
+
+
+def _ldmatrix_x4(tile, rows, cols, trans=False):
+    """ldmatrix.sync.aligned.m8n8.x4[.trans].b16 from a (rows, cols) tile:
+    lane 8i + r gives the address (rows[8i + r], cols[8i + r]) of row r of
+    8×8 block i. Returns (32 lanes, 4 registers, 2 halves): register i of
+    lane L holds row L >> 2 of block i, columns 2(L & 3) and +1; with .trans,
+    column L >> 2 of rows 2(L & 3) and +1."""
+    out = torch.zeros((32, 4, 2), dtype=tile.dtype)
+    for i in range(4):
+        r0, c0 = rows[8 * i:8 * i + 8], cols[8 * i:8 * i + 8]
+        for e in range(2):
+            if trans:
+                out[:, i, e] = tile[r0[2 * _T + e], c0[2 * _T + e] + _G]
             else:
-                tatt._check(bad, bad, bad)
+                out[:, i, e] = tile[r0[_G], c0[_G] + 2 * _T + e]
+    return out
+
+
+def _to_c_fragments(mat):
+    """A 16×64 matrix as (8 n8 tiles, 32 lanes, 4) C fragments."""
+    return torch.stack([torch.stack([mat[_G, 8 * j + 2 * _T], mat[_G, 8 * j + 2 * _T + 1], mat[_G + 8, 8 * j + 2 * _T],
+                                     mat[_G + 8, 8 * j + 2 * _T + 1]], 1) for j in range(8)])
+
+
+# the kernel's ldmatrix lane addresses (k_lane, v_lane in csrc/attention.cu) as (row, column) in a tile
+_K_ROWS, _K_COLS = (_LANE & 7) + (_LANE >> 4) * 8, ((_LANE >> 3) & 1) * 8
+_V_ROWS, _V_COLS = (_LANE & 7) + ((_LANE >> 3) & 1) * 8, (_LANE >> 4) * 8
+
+
+def test_m16n8k16_fragments_ldmatrix_and_p_in_registers_give_one_warps_tile(rng):
+    """One warp's 16 Q rows against 64 keys (two of the kernel's K/V tiles),
+    with the bf16 kernel's index arithmetic: Q's A fragments read from memory, K's B fragments from
+    ldmatrix.x4 without .trans (key tiles 2jj and 2jj+1 at k step c), S's C
+    fragments of key tiles 2kk and 2kk+1 reused unchanged as P's A fragment
+    of k step kk, and V's B fragments from ldmatrix.x4.trans (d tiles 2p and
+    2p+1): Q·Kᵀ and P·V come out exact."""
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, 64))) for n in (16, 64, 64))
+    qa = torch.stack([torch.stack([q[_G + 8 * (r % 2), 16 * c + 8 * (r // 2) + 2 * _T + e]
+                                   for r in range(4) for e in range(2)], 1) for c in range(4)])
+    s = torch.zeros((8, 32, 4), dtype=torch.float64)
+    for c in range(4):
+        for jj in range(4):
+            kf = _ldmatrix_x4(k, 16 * jj + _K_ROWS, 16 * c + _K_COLS)
+            s[2 * jj] = _mma_m16n8k16(qa[c], kf[:, 0:2].reshape(32, 4), s[2 * jj])
+            s[2 * jj + 1] = _mma_m16n8k16(qa[c], kf[:, 2:4].reshape(32, 4), s[2 * jj + 1])
+    torch.testing.assert_close(_from_c_fragments(s), q @ k.T, rtol=1e-12, atol=1e-12)
+
+    p = torch.softmax(_from_c_fragments(s), dim=-1)
+    pc = _to_c_fragments(p)
+    o = torch.zeros((8, 32, 4), dtype=torch.float64)
+    for kk in range(4):
+        pa = torch.cat([pc[2 * kk], pc[2 * kk + 1]], 1)  # c0..c3 of tile 2kk, then of 2kk+1: a0..a7
+        for pp in range(4):
+            vf = _ldmatrix_x4(v, 16 * kk + _V_ROWS, 16 * pp + _V_COLS, trans=True)
+            o[2 * pp] = _mma_m16n8k16(pa, vf[:, 0:2].reshape(32, 4), o[2 * pp])
+            o[2 * pp + 1] = _mma_m16n8k16(pa, vf[:, 2:4].reshape(32, 4), o[2 * pp + 1])
+    torch.testing.assert_close(_from_c_fragments(o), p @ v, rtol=1e-12, atol=1e-12)
+
+    # S's fragments in the order of P's A fragment with the halves of a register swapped break it
+    swapped = torch.cat([pc[0][:, [1, 0, 3, 2]], pc[1][:, [1, 0, 3, 2]]], 1)
+    vf = _ldmatrix_x4(v, _V_ROWS, _V_COLS, trans=True)
+    good = _mma_m16n8k16(torch.cat([pc[0], pc[1]], 1), vf[:, 0:2].reshape(32, 4), torch.zeros((32, 4)))
+    bad = _mma_m16n8k16(swapped, vf[:, 0:2].reshape(32, 4), torch.zeros((32, 4)))
+    assert (good - bad).abs().max() > 1e-3
+
+
+def test_bf16_tile_rows_read_without_bank_conflicts():
+    """Each 8-lane phase of the kernel's ldmatrix reads eight 16-byte rows;
+    at a 72-element (144-byte) pitch they fall in eight distinct groups of
+    four banks, for K's and V's lane addresses at every offset in a tile."""
+    for rows, cols in ((_K_ROWS, _K_COLS), (_V_ROWS, _V_COLS)):
+        for r_off in range(0, _KEYS, 16):
+            for c_off in range(0, 64, 16):
+                addr = ((rows + r_off) * _LDH + cols + c_off) * 2
+                assert (addr % 16 == 0).all()
+                for phase in range(4):
+                    groups = (addr[8 * phase:8 * phase + 8] // 16) % 8
+                    assert len(set(groups.tolist())) == 8
+
+
+def _attention_bf16_kernel_numerics(q, k, v, tile=_KEYS):
+    """The bf16 kernel's arithmetic on (B, H, N, 64) bf16 tensors: f32
+    logits, a base-2 online softmax over 32-key tiles, the unnormalised
+    probabilities rounded to bf16 for an f32-accumulated product with V, the
+    running sum from the unrounded values, a final divide and bf16 out."""
+    scale_log2 = torch.tensor(64 ** -0.5, dtype=torch.float32) * torch.tensor(1.4426950408889634)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((*q.shape[:3], 1), -torch.inf)
+    l = torch.zeros((*q.shape[:3], 1))
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, q.shape[2], tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc * (1 / l)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [97, 200])
+def test_bf16_kernel_numerics_hold_xla_and_plain(rng, n):
+    """Three tiles and one key, and six tiles and 8 keys: within the
+    1e-2 bf16 tolerance of the JAX package's _attention_xla in bf16 and of
+    attention_plain."""
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(rng, (1, 2, n, 64))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _attention_bf16_kernel_numerics(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 2, n, 64)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    xla = np.asarray(_attention_xla(jq, jk, jv, 64 ** -0.5).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), xla, atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), tatt.attention_plain(tq, tk, tv).float(), atol=1e-2, rtol=1e-2)
