@@ -18,8 +18,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    three TF32 products for each f32 one at 495 TFLOP/s, and its f32-FMA
    bound is kept beside it; otherwise the rate of the input type). K1 is
    checked in f32 and in bf16 at (1|4, 16, 769, 64) and (1, 16, 577, 64)
-   and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) runs at the
-   four MiDaS v2.1 conv2 shapes in f32 and bf16, timed in f32;
+   and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) is checked
+   and timed at the four MiDaS v2.1 conv2 shapes in f32 (3xTF32 on the tensor
+   cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it; its tiling
+   printed) and in bf16 (FMA units; bound at the bf16 rate);
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
    .avi, per frame and with ``microbatch=4``, each after one untimed batch
@@ -29,8 +31,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    a 240×320 frame: max |gpu - cpu| / max |cpu| < 1e-3, the package's
    accuracy gate (BASELINE.md:23);
 6. profile — one 480×640 frame program at a time: host-clock ms per program,
-   then torch.profiler's device busy time per program, K1's device ms and
-   calls per program, and the largest kernels;
+   then torch.profiler's device busy time per program, K1's and K4's device
+   ms and calls per program, and the largest kernels;
 7. bf16    — the opt-in bfloat16 mode on the same weights: finite, within 5%
    of the f32 map's range, its host-clock ms per frame and its K1 launches
    (asserted: 24 a frame, all on the bf16 route); then bf16_profile, phase 6
@@ -183,7 +185,8 @@ MIDAS_CONV2_SHAPES = {"layer1": (256, 48, 64), "layer2": (512, 24, 32), "layer3"
 
 
 def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
-    from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3, grouped_conv3x3_plain
+    from depth_estimation_tpu_torch.ops.kernels.grouped_conv import (f32_tiling, grouped_conv3x3,
+                                                                     grouped_conv3x3_plain)
 
     c, h, w = MIDAS_CONV2_SHAPES[layer]
     cg = c // groups
@@ -197,9 +200,17 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
     lib = lambda: F.conv2d(x, k, padding=1, groups=groups)  # noqa: E731
     row = {"layer": layer, "shape": [1, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
            "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item()}
+    if dtype == torch.float32:
+        row["tiling"] = f32_tiling(x.shape, groups, torch.cuda.get_device_properties(0).multi_processor_count)
     if timed:
-        elem = torch.finfo(dtype).bits // 8
-        bnd, by = bound_ms((2 * x.numel() + k.numel()) * elem, 2 * h * w * c * cg * 9, PEAK_FLOPS[dtype])
+        nbytes, flops = (2 * x.numel() + k.numel()) * (torch.finfo(dtype).bits // 8), 2 * h * w * c * cg * 9
+        if dtype == torch.float32:  # three TF32 products for each f32 one
+            bnd, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
+            row.update(bound_peak="3xTF32 tensor cores, 495 TFLOP/s",
+                       fma_bound_ms=bound_ms(nbytes, flops, PEAK_FLOPS[dtype])[0])
+        else:
+            bnd, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+            row.update(bound_peak="bf16 tensor-core rate, 989 TFLOP/s (this route runs on the FMA units)")
         row.update(ms=time_ms(lambda: grouped_conv3x3(x, k, groups)),
                    plain_ms=time_ms(lambda: grouped_conv3x3_plain(x, k, groups)),
                    library_ms=time_ms(lib),
@@ -235,12 +246,14 @@ def run_stream(est, out_path, microbatch, per_program, phase="stream", **extra):
 
 
 K1_KERNELS = ("attention_f32_kernel", "attention_bf16_kernel")
+K4_KERNELS = ("grouped_conv3x3_tf32_kernel", "grouped_conv3x3_kernel")  # one entry per template instance
+K4_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 
 
 def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
     """Frame programs of ``batch`` copies of ``frame``, one at a time: host-clock
-    ms per program, then torch.profiler's device busy time, K1's share and the
-    largest kernels. With ``max_calls``, fails if any kernel entry is launched
+    ms per program, then torch.profiler's device busy time, K1's and K4's
+    shares and the largest kernels. With ``max_calls``, fails if any kernel entry is launched
     more often than that in one program."""
     imgs = np.stack([frame] * batch)
     program = est._batched_fn(frame.shape[:2], "u8")
@@ -260,6 +273,7 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / n / 1e3
     k1 = [r for r in rows if any(name in r[0] for name in K1_KERNELS)]
+    k4 = [r for r in rows if any(name in r[0] for name in K4_KERNELS)]
     most = max(rows, key=lambda r: r[2])
     if max_calls is not None:
         check(most[2] / n <= max_calls,
@@ -268,6 +282,7 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
          program_ms=program_ms, frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
          device_idle_share=max(0.0, 1 - busy_ms / program_ms),
          k1_ms_per_program=sum(r[1] for r in k1) / n / 1e3, k1_calls_per_program=sum(r[2] for r in k1) / n,
+         k4_ms_per_program=sum(r[1] for r in k4) / n / 1e3, k4_calls_per_program=sum(r[2] for r in k4) / n,
          most_calls={"kernel": most[0][:100], "calls_per_program": most[2] / n},
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
@@ -365,11 +380,12 @@ def main():
         pre = check_preprocess(frames[:1], net_hw, DPT_PREPROCESS, timed=True)
         check_preprocess(frames, net_hw, DPT_PREPROCESS, timed=False)
         rsz = check_resize(gen, net_hw, (480, 640))
-        # K4 is timed at every conv2 shape; the table's row is layer 3, with 22 of its 30 launches a frame
+        # K4 is timed at every conv2 shape in both types; the table's row is layer 3, with 22 of its 30
+        # launches a frame
         gconv = {layer: check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=True)
                  for layer in MIDAS_CONV2_SHAPES}
-        for layer in MIDAS_CONV2_SHAPES:
-            check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=False)
+        gconv16 = {layer: check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=True)
+                   for layer in MIDAS_CONV2_SHAPES}
 
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
     dpt_per_program = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
@@ -412,7 +428,13 @@ def main():
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:102", rsz, launches),
         entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
-              "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches),
+              "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches,
+              bound_peak=gconv["layer3"]["bound_peak"], fma_bound_ms=gconv["layer3"]["fma_bound_ms"],
+              bf16_ms=gconv16["layer3"]["ms"], bf16_plain_ms=gconv16["layer3"]["plain_ms"],
+              bf16_bound_ms=gconv16["layer3"]["bound_ms"], bf16_library_ms=gconv16["layer3"]["library_ms"],
+              bf16_max_abs_err=gconv16["layer3"]["max_abs_err"],
+              per_layer={layer: {"f32": {k: gconv[layer][k] for k in K4_KEYS},
+                                 "bf16": {k: gconv16[layer][k] for k in K4_KEYS}} for layer in MIDAS_CONV2_SHAPES}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

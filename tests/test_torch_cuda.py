@@ -164,6 +164,42 @@ def test_grouped_conv_kernel_odd_small_shape(cuda, gen, dtype, tol):
     torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, 4).float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("b,c,h,w,g", [(1, 96, 12, 16, 8), (2, 96, 5, 7, 8), (1, 64, 9, 11, 8), (1, 40, 3, 5, 2)],
+                         ids=["cg12", "cg12_5x7", "hw99", "cg20_3x5"])
+def test_grouped_conv_f32_kernel_ragged(cuda, gen, b, c, h, w, g):
+    """The f32 route with C/G not a multiple of 8 (12, 20: k and n padded
+    with zeros in shared memory) and H·W not a multiple of 16 (35, 99, 15:
+    pixel rows past the map masked at the store)."""
+    x, k = _grouped_inputs(gen, b, c, h, w, g, torch.float32, cuda)
+    got = tgc.grouped_conv3x3(x, k, g)
+    torch.testing.assert_close(got, tgc.grouped_conv3x3_plain(x, k, g), atol=1e-4, rtol=1e-4)
+
+
+def test_grouped_conv_f32_kernel_large_inputs(cuda, gen):
+    """Layer 4 with inputs ×30 (outputs up to about 100): held against a
+    float64 convolution on the CPU within 1e-5 of the outputs' range, the
+    1e-4 of the unscaled case relative to its range; the plain f32 version's
+    distance is printed beside it."""
+    x, k = _grouped_inputs(gen, 1, 2048, 6, 8, 32, torch.float32, cuda)
+    x = x * 30
+    exact = torch.nn.functional.conv2d(x.cpu().double(), k.cpu().double(), padding=1, groups=32)
+    got_err = (tgc.grouped_conv3x3(x, k, 32).cpu().double() - exact).abs().max().item()
+    plain_err = (tgc.grouped_conv3x3_plain(x, k, 32).cpu().double() - exact).abs().max().item()
+    print(f"x30 layer 4: kernel {got_err:.3g}, plain {plain_err:.3g}, max |y| {exact.abs().max().item():.4g}")
+    assert got_err <= 1e-5 * exact.abs().max().item()
+
+
+def test_grouped_conv_f32_tilings_at_midas_shapes(cuda):
+    """The tilings that tests/test_torch_kernels.py's lane-mapping and bank
+    tests assume are the ones the kernel picks, at batch 1 on 132 SMs."""
+    want = {(256, 48, 64): (8, 4, 64, 1, 4), (512, 24, 32): (16, 4, 32, 1, 2),
+            (1024, 12, 16): (16, 3, 16, 4, 3), (2048, 6, 8): (8, 6, 8, 4, 3)}
+    for (c, h, w), tiling in want.items():
+        got = tgc.f32_tiling((1, c, h, w), 32, 132)
+        assert tuple(got[f] for f in ("nco", "th", "tw", "wk", "mt")) == tiling, (c, got)
+        assert got["plane"] % 16 == 8 and got["pco"] % 8 == 4
+
+
 def test_grouped_conv_kernel_counts_each_launch(cuda, gen):
     x, k = _grouped_inputs(gen, 1, 64, 9, 11, 8, torch.float32, cuda)
     before = tgc.grouped_conv3x3.launches

@@ -6,13 +6,16 @@ tests/test_torch_cuda.py, on a GPU."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from depth_estimation_tpu.config import DPT_PREPROCESS, SMALL_PREPROCESS
 from depth_estimation_tpu.ops.pallas.attention import _attention_xla
 from depth_estimation_tpu.ops.pallas.attention import multi_head_attention as jax_mha
+from depth_estimation_tpu.ops.pallas.grouped_conv import grouped_conv3x3_pallas
 from depth_estimation_tpu.ops.pallas.resize import pallas_preprocess, pallas_resize2d
 from depth_estimation_tpu.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 
 
@@ -397,3 +400,178 @@ def test_bf16_kernel_numerics_hold_xla_and_plain(rng, n):
     xla = np.asarray(_attention_xla(jq, jk, jv, 64 ** -0.5).astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), xla, atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(got.float(), tatt.attention_plain(tq, tk, tv).float(), atol=1e-2, rtol=1e-2)
+
+
+# K4's f32 route (csrc/grouped_conv.cu): a 3xTF32 implicit GEMM on
+# mma.sync.m16n8k8 with k = tap·(C/G) + ci tap-major, input channels staged
+# in chunks of 8·wk (warp slice s takes channels 8s .. 8s+7 of each chunk),
+# each chunk's products summed fresh, the slices' sums added at the end.
+
+
+def _k4_grouped_inputs(rng, c, cg, h, w):
+    x = rng.standard_normal((1, c, h, w)).astype(np.float32)
+    k = (rng.standard_normal((c, cg, 3, 3)) / np.sqrt(9 * cg)).astype(np.float32)
+    return x, k
+
+
+def _k4_conv_tf32(x, weight, groups, wk=1, matmul=_matmul_3xtf32):
+    """The f32 kernel's arithmetic on (B, C, H, W) and (C, C/G, 3, 3): A is
+    the tap-major im2col (B, G, H·W, 9, C/G), B the weights as (G, 9, ci, co)."""
+    b, c, h, w = x.shape
+    cg = c // groups
+    a = F.unfold(x, 3, padding=1).reshape(b, groups, cg, 9, h * w).permute(0, 1, 4, 3, 2)
+    bm = weight.reshape(groups, cg, cg, 9).permute(0, 3, 2, 1)
+    total = torch.zeros((b, groups, h * w, cg))
+    for s in range(wk):
+        run = torch.zeros_like(total)
+        for ci0 in range(0, cg, 8 * wk):
+            lo, hi = ci0 + 8 * s, min(ci0 + 8 * s + 8, cg)
+            if lo < hi:  # this chunk's 9 taps × 8 channels, in fresh registers
+                run = run + matmul(a[..., lo:hi].reshape(b, groups, h * w, -1),
+                                   bm[:, :, lo:hi].reshape(groups, -1, cg))
+        total = total + run
+    return total.permute(0, 1, 3, 2).reshape(b, c, h, w)
+
+
+@pytest.mark.parametrize("cg,groups,h,w,wk", [(8, 4, 9, 11, 1), (16, 2, 7, 8, 1), (32, 2, 6, 5, 4),
+                                              (64, 2, 5, 7, 4), (64, 2, 6, 8, 2), (2, 4, 5, 7, 1)])
+def test_k4_3xtf32_implicit_gemm_holds_pallas_and_plain(rng, cg, groups, h, w, wk):
+    """C/G = 8, 16, 32, 64 and 2 at odd and even H, W, with the k split of
+    the small maps: within 1e-4 of the Pallas kernel (interpret mode, f32 at
+    precision "highest") and of grouped_conv3x3_plain."""
+    import jax.numpy as jnp
+
+    x, k = _k4_grouped_inputs(rng, cg * groups, cg, h, w)
+    got = _k4_conv_tf32(torch.from_numpy(x), torch.from_numpy(k), groups, wk)
+    plain = tgc.grouped_conv3x3_plain(torch.from_numpy(x), torch.from_numpy(k), groups)
+    torch.testing.assert_close(got, plain, atol=1e-4, rtol=1e-4)
+    pallas = grouped_conv3x3_pallas(jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(k.transpose(2, 3, 1, 0)),
+                                    groups, interpret=True)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(pallas), atol=1e-4, rtol=1e-4)
+
+
+def test_k4_one_pass_tf32_misses_the_tolerance(rng):
+    """Why the kernel takes three passes: at C/G = 64 (layer 4) one TF32
+    pass lands some 1e-3 from the plain version, three within 1e-5."""
+    x, k = map(torch.from_numpy, _k4_grouped_inputs(rng, 128, 64, 6, 8))
+    plain = tgc.grouped_conv3x3_plain(x, k, 2)
+    one = _k4_conv_tf32(x, k, 2, 4, _matmul_1xtf32)
+    assert not torch.allclose(one, plain, atol=1e-4, rtol=1e-4)
+    assert (one - plain).abs().max() > 3e-4
+    assert (_k4_conv_tf32(x, k, 2, 4) - plain).abs().max() < 1e-5
+
+
+def _pad_to_octet(n):
+    """csrc/grouped_conv.cu's pad_to_octet: the least m ≥ n with m ≡ 8 (mod 16)."""
+    return n + (8 - n % 16) % 16
+
+
+# pick_gemm_tiling's choice at the MiDaS conv2 shapes, batch 1, 132 SMs
+# (tests/test_torch_cuda.py holds the kernel's own to it): (C, H, W) →
+# (nco, th, tw, wk, mt)
+_K4_TILINGS = {(256, 48, 64): (8, 4, 64, 1, 4), (512, 24, 32): (16, 4, 32, 1, 2),
+               (1024, 12, 16): (16, 3, 16, 4, 3), (2048, 6, 8): (8, 6, 8, 4, 3)}
+
+
+def _k4_layout(th, tw, wk):
+    """A buffer's pitches as the kernel sets them: input row pitch rw (the
+    halo at column 3, the tile's columns from 4), plane pitch, weight row
+    pitch pco (one output channel's ck·9 values, as stored), channels a
+    chunk ck, and the weights' offset."""
+    rw, ck = tw + 8, 8 * wk
+    return rw, _pad_to_octet((th + 2) * rw), 9 * ck + 4, ck, ck * _pad_to_octet((th + 2) * rw)
+
+
+def _k4_fragment_words(nco, th, tw, wk, mt_count, wm, ks, mt, tap):
+    """The kernel's word addresses in a buffer for one k8 step (tap, slice
+    ks) of m16 tile mt of warp wm: A's a0..a3 (32 lanes, 4) and, per n8 tile,
+    B's b0, b1 (nco / 8, 32 lanes, 2); and the tile's pixel indices (32, 2)
+    for fragment rows g and g + 8."""
+    rw, plane, pco, ck, w_base = _k4_layout(th, tw, wk)
+    p = (wm * mt_count + mt) * 16 + _G[:, None] + 8 * torch.arange(2)
+    a_off = torch.where(p < th * tw, p // tw * rw + p % tw + 3, 0)  # once per lane, before the k loop
+    toff = tap // 3 * rw + tap % 3
+    xs = (8 * ks + _T[:, None]) * plane + a_off + toff
+    a = torch.cat([xs, xs + 4 * plane], 1)  # (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+    ws = w_base + _G * pco + (8 * ks + _T) * 9 + tap
+    b = torch.stack([torch.stack([ws + 8 * nt * pco, ws + 8 * nt * pco + 36], 1) for nt in range(nco // 8)])
+    return a, b, p
+
+
+def _k4_staged_buffer(x, weight, cg, nco, th, tw, wk, r0, c0, co0, ci0):
+    """One chunk's buffer as the kernel's cp.async copies fill it: input
+    planes [ci][th + 2][rw] with the tile from column 4 and a zero halo at
+    columns 3 and tw + 4, then weights [co][ci·9 + tap]; zeros for channels
+    past the group."""
+    rw, plane, pco, ck, w_base = _k4_layout(th, tw, wk)
+    buf = torch.zeros(w_base + nco * pco, dtype=x.dtype)
+    xp = F.pad(x, (1, 1 + tw, 1, 1 + th))  # zeros around the image and past the last tile
+    for ci in range(min(ck, cg - ci0)):
+        tile = xp[ci0 + ci, r0:r0 + th + 2, c0:c0 + tw + 2]
+        for rr in range(th + 2):
+            buf[ci * plane + rr * rw + 3:ci * plane + rr * rw + tw + 5] = tile[rr]
+        for co in range(min(nco, cg - co0)):
+            buf[w_base + co * pco + ci * 9 + torch.arange(9)] = weight[co0 + co, ci0 + ci].reshape(-1)
+    return buf
+
+
+@pytest.mark.parametrize("nco,th,tw,wk,mt_count,h,w,cg", [
+    (8, 6, 8, 4, 3, 6, 8, 64),     # layer 4: W = 8, so each m16 tile spans two image rows
+    (16, 3, 16, 4, 3, 12, 16, 32),  # layer 3's tile, one of four row tiles
+    (8, 2, 7, 1, 1, 5, 7, 5),      # ragged: 14 pixels a tile, C/G = 5
+], ids=["layer4", "layer3", "ragged"])
+def test_k4_lane_mapping_rebuilds_one_warps_tile(rng, nco, th, tw, wk, mt_count, h, w, cg):
+    """Each warp's m16 × n8 tiles from the kernel's fragment offsets, through
+    one warp's mma on per-lane fragments: every live pixel row and channel
+    equals the convolution of that slice's 8 input channels, exactly."""
+    x = torch.from_numpy(rng.standard_normal((cg, h, w)))
+    weight = torch.from_numpy(rng.standard_normal((cg, cg, 3, 3)))
+    r0, c0 = (h - 1) // th * th, 0  # the last row tile, which may reach past the image
+    for ci0 in range(0, cg, 8 * wk):
+        buf = _k4_staged_buffer(x, weight, cg, nco, th, tw, wk, r0, c0, 0, ci0)
+        for ks in range(wk):
+            lo, hi = ci0 + 8 * ks, min(ci0 + 8 * ks + 8, cg)
+            if lo >= hi:
+                continue
+            ref = F.conv2d(x[None, lo:hi], weight[:nco, lo:hi], padding=1)[0]  # (co, H, W)
+            for wm in range(4 // wk):
+                for mt in range(mt_count):
+                    c = torch.zeros((nco // 8, 32, 4), dtype=torch.float64)
+                    for tap in range(9):
+                        a, b, p = _k4_fragment_words(nco, th, tw, wk, mt_count, wm, ks, mt, tap)
+                        for nt in range(nco // 8):
+                            c[nt] = _mma_m16n8k8(buf[a], buf[b[nt]], c[nt])
+                    for nt in range(nco // 8):
+                        for hh in range(2):
+                            pix = p[:, hh]
+                            row, col = r0 + pix // tw, c0 + pix % tw
+                            live = (pix < th * tw) & (row < h)
+                            for e in range(2):
+                                co = 8 * nt + 2 * _T + e
+                                live_c = live & (co < cg)
+                                want = ref[co[live_c], row[live_c], col[live_c]]
+                                torch.testing.assert_close(c[nt][live_c, 2 * hh + e], want, rtol=1e-12, atol=1e-12)
+    # the layer-4 tile's m16 tile 1 holds pixels 16..31: image rows 2 and 3
+    assert torch.equal(_k4_fragment_words(8, 6, 8, 4, 3, 0, 0, 1, 0)[2][:, 0] // 8, torch.full((32,), 2))
+
+
+@pytest.mark.parametrize("shape", list(_K4_TILINGS), ids=["layer1", "layer2", "layer3", "layer4"])
+def test_k4_fragment_reads_without_bank_conflicts(shape):
+    """Every shared-memory read of an A or B fragment, at the kernel's
+    tiling of each MiDaS shape, touches 32 distinct banks. A: the plane
+    pitch ≡ 8 (mod 16) words puts the four t values on four bank octets and
+    the g values (neighbouring pixels) on consecutive banks. B: the weight
+    row pitch ≡ 4 (mod 8) puts the eight g values (output channels) on the
+    eight multiples of 4 (mod 32), and t (input channel, 9 words apart)
+    adds 0, 1, 2, 3 (mod 4)."""
+    nco, th, tw, wk, mt_count = _K4_TILINGS[shape]
+    assert 4 * mt_count * 16 // wk >= th * tw > 4 * (mt_count - 1) * 16 // wk  # the tile fills the warps
+    for ks in range(wk):
+        for wm in range(4 // wk):
+            for mt in range(mt_count):
+                for tap in range(9):
+                    a, b, _ = _k4_fragment_words(nco, th, tw, wk, mt_count, wm, ks, mt, tap)
+                    for words in [*a.T, *b.reshape(-1, 32, 2).permute(0, 2, 1).reshape(-1, 32)]:
+                        assert len(set((words % 32).tolist())) == 32
+    # without the padding (pco = ck·9, a multiple of 8) channels g and g + 4 would share banks
+    assert all(len({(g * 9 * ck) % 32 for g in range(8)}) < 8 for ck in (8, 16, 32))
