@@ -21,7 +21,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) is checked
    and timed at the four MiDaS v2.1 conv2 shapes in f32 (3xTF32 on the tensor
    cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it; its tiling
-   printed) and in bf16 (FMA units; bound at the bf16 rate);
+   printed) and in bf16 (FMA units; bound at the bf16 rate), at batch 1, and
+   checked in both at batch 4, the microbatch;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
    .avi, per frame and with ``microbatch=4``, each after one untimed batch
@@ -184,26 +185,27 @@ MIDAS_CONV2_SHAPES = {"layer1": (256, 48, 64), "layer2": (512, 24, 32), "layer3"
                       "layer4": (2048, 6, 8)}  # (C, H, W) at a 192×256 network input, G = 32
 
 
-def check_grouped_conv(gen, layer, dtype, tol, timed, groups=32):
+def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
     from depth_estimation_tpu_torch.ops.kernels.grouped_conv import (f32_tiling, grouped_conv3x3,
                                                                      grouped_conv3x3_plain)
 
     c, h, w = MIDAS_CONV2_SHAPES[layer]
     cg = c // groups
-    x = torch.randn((1, c, h, w), generator=gen, device="cuda").to(dtype)
+    x = torch.randn((batch, c, h, w), generator=gen, device="cuda").to(dtype)
     k = (torch.randn((c, cg, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * cg)).to(dtype)
     got, ref = grouped_conv3x3(x, k, groups), grouped_conv3x3_plain(x, k, groups)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
-          f"grouped conv {layer} {dtype}: max abs err {err} over atol {tol} rtol {tol}")
+          f"grouped conv {layer} batch {batch} {dtype}: max abs err {err} over atol {tol} rtol {tol}")
     lib = lambda: F.conv2d(x, k, padding=1, groups=groups)  # noqa: E731
-    row = {"layer": layer, "shape": [1, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
+    row = {"layer": layer, "shape": [batch, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
            "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item()}
     if dtype == torch.float32:
         row["tiling"] = f32_tiling(x.shape, groups, torch.cuda.get_device_properties(0).multi_processor_count)
     if timed:
-        nbytes, flops = (2 * x.numel() + k.numel()) * (torch.finfo(dtype).bits // 8), 2 * h * w * c * cg * 9
+        nbytes = (2 * x.numel() + k.numel()) * (torch.finfo(dtype).bits // 8)
+        flops = 2 * batch * h * w * c * cg * 9
         if dtype == torch.float32:  # three TF32 products for each f32 one
             bnd, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
             row.update(bound_peak="3xTF32 tensor cores, 495 TFLOP/s",
@@ -386,6 +388,10 @@ def main():
                  for layer in MIDAS_CONV2_SHAPES}
         gconv16 = {layer: check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=True)
                    for layer in MIDAS_CONV2_SHAPES}
+        # the MiDaS stream's microbatch and profile run K4 at batch 4, where the f32 tilings differ
+        for layer in MIDAS_CONV2_SHAPES:
+            check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=False, batch=MICROBATCH)
+            check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=False, batch=MICROBATCH)
 
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
     dpt_per_program = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}

@@ -59,8 +59,10 @@
 // on the eight multiples of 4 and the four t values (input channels, 9
 // words apart) on the four residues mod 4: both conflict-free (pinned on the
 // CPU by tests/test_torch_kernels.py).
-//   Where the time goes (tools/k4_breakdown.py times copies of this kernel
-// with the staging, the mma or both taken out; PERF.md): a launch is a fixed
+//   Where the time goes (tools/k4_breakdown.py times builds of this kernel
+// with the staging, the mma or both taken out, by the macros K4_NO_STAGE and
+// K4_NO_MMA, or with every block ending at once, K4_LAUNCH_ONLY; the
+// library is built with none of them; PERF.md): a launch is a fixed
 // part (launch, offsets, stores) plus the staging plus the mma, which add up
 // with little overlap, because layers 1 and 3 stage one chunk a block and
 // all blocks of the single wave start at once.
@@ -70,7 +72,8 @@
 // Pixels past the tile or the image and channels past the group are
 // computed on zeros and not stored.
 //
-// bf16: the FMA units (grouped_conv3x3_kernel<__nv_bfloat16>). 113 MFLOP
+// bf16: the FMA units (grouped_conv3x3_kernel<__nv_bfloat16>, the only
+// instance of that template: T is bf16 alone). 113 MFLOP
 // at 67 TFLOP/s f32 FMA is 1.7 µs, so layers 2–4 are bound by operations
 // there. One block owns one image, one group, a tile of
 // that group's output channels (a multiple of 4) and a tile of output rows
@@ -108,9 +111,7 @@ struct Tiling {
   int co_tiles, row_tiles, col_tiles;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Stage n values into shared memory, kUnroll loads in flight per thread:
@@ -318,17 +319,30 @@ struct GemmTiling {
 // The least m ≥ n with m ≡ 8 (mod 16): four rows of pitch m start on four distinct bank octets.
 int pad_to_octet(int n) { return n + ((8 - n % 16) % 16 + 16) % 16; }
 
+// K4_NO_STAGE (a breakdown build): the copies are not issued, and the k loop
+// multiplies whatever shared memory holds.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+#ifndef K4_NO_STAGE
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
+#endif
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool live) {
+#ifndef K4_NO_STAGE
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(live ? 4 : 0));
+#endif
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// K4_NO_MMA (a breakdown build): the k loop has no taps; the chunks are staged and zeros stored.
+#ifdef K4_NO_MMA
+constexpr int kTaps = 0;
+#else
+constexpr int kTaps = 9;
+#endif
 
 // A operand: hi rounded to the nearest TF32, lo the rest (which the mma truncates).
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
@@ -362,6 +376,9 @@ template <int MT, int NT>
 __global__ void __launch_bounds__(kGemmThreads, MT * NT <= 4 ? 3 : 1)
 grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
                             int channels, int h, int wd, int cg, GemmTiling t) {
+#ifdef K4_LAUNCH_ONLY  // a breakdown build: every block ends at once
+  if (h > 0) return;
+#endif
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // two buffers, each input planes then weights
   const int buf_floats = t.ck * t.plane + t.nco * t.pco;
@@ -477,7 +494,7 @@ grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
+    for (int tap = 0; tap < kTaps; ++tap) {
       const int toff = (tap / 3) * t.rw + tap % 3;
       uint32_t a_hi[MT][4], a_lo[MT][4], b_hi[NT][2], b_lo[NT][2];
 #pragma unroll

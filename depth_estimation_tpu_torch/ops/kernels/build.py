@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` at first use into ``depth_estimation_tpu_torch/_build/``
 (listed in ``.gitignore``), under a file name keyed by a hash of the source
-and the flags, so an edited source is rebuilt and a built one is reused. The
-library is loaded with ``ctypes``; every pointer and the stream are passed
-as ``c_void_p``.
+and the flags, so an edited source is rebuilt and a built one is reused. A
+build may add preprocessor macros (``defines``, passed as ``-D``); the port's
+own libraries take none. The library is loaded with ``ctypes``; every
+pointer and the stream are passed as ``c_void_p``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -37,25 +38,29 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> pathlib.Path:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def build(names: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Dict[str, str]:
     """Compile each named source that is not built yet, one ``nvcc`` per
     source, all started together. Returns each source's compiler output
     (empty for one that was already built); raises if any build fails."""
     jobs = {}
     try:
         for name in names:
-            out = library_path(name)
+            out = library_path(name, defines)
             if out.exists():
                 continue
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, tmp, out)
         logs = {name: "" for name in names}
@@ -78,10 +83,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first if needed."""
-    build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+    build((name,), defines)
+    return ctypes.CDLL(str(library_path(name, defines)))
 
 
 def check(err: int, what: str) -> None:

@@ -3,6 +3,8 @@ kernels (Pallas in interpret mode) and their XLA forms, on the CPU. The CUDA
 kernels themselves are tested against these plain versions in
 tests/test_torch_cuda.py, on a GPU."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -575,3 +577,19 @@ def test_k4_fragment_reads_without_bank_conflicts(shape):
                         assert len(set((words % 32).tolist())) == 32
     # without the padding (pco = ck·9, a multiple of 8) channels g and g + 4 would share banks
     assert all(len({(g * 9 * ck) % 32 for g in range(8)}) < 8 for ck in (8, 16, 32))
+
+
+def test_k4_breakdown_macros_are_in_the_source_and_keyed_apart():
+    """tools/k4_breakdown.py builds the kernel with each of its macros: each
+    is one the source tests, and each build gets a library of its own beside
+    the port's, which takes no macro."""
+    from depth_estimation_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / "grouped_conv.cu").read_text()
+    tool = (build.CSRC.parents[1] / "tools" / "k4_breakdown.py").read_text()
+    macros = set(re.findall(r'"(K4_[A-Z_]+)"', tool))
+    assert macros == {"K4_NO_STAGE", "K4_NO_MMA", "K4_LAUNCH_ONLY"}
+    for macro in macros:
+        assert re.search(rf"^#ifn?def {macro}\b", src, re.M), macro
+    paths = {build.library_path("grouped_conv")} | {build.library_path("grouped_conv", (m,)) for m in macros}
+    assert len(paths) == 1 + len(macros)

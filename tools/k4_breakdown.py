@@ -4,12 +4,13 @@
     python3 tools/k4_breakdown.py
 
 Builds ``depth_estimation_tpu_torch/csrc/grouped_conv.cu`` five times with
-nvcc: as it is, and as four copies edited as text: one without its cp.async
-copies (the kernel multiplies whatever shared memory holds), one without its
-k loop (it stages and stores zeros), one without either, and one whose
-blocks return at once (the launch and nothing else). Each is timed
-at the four MiDaS v2.1 conv2 shapes at batch 1 and 4 with chip_smoke's timer
-(CUDA events, median of 25 runs of 10 calls). Only the kernel as it is gets
+nvcc, all started together, through the port's own build module: as it is,
+and with each of the source's breakdown macros: ``K4_NO_STAGE`` (no cp.async
+copies; the kernel multiplies whatever shared memory holds), ``K4_NO_MMA``
+(no k loop; it stages and stores zeros), both, and ``K4_LAUNCH_ONLY`` (every
+block returns at once: the launch and nothing else). Each is timed at the
+four MiDaS v2.1 conv2 shapes at batch 1 and 4 with chip_smoke's timer (CUDA
+events, median of 25 runs of 10 calls). Only the kernel as it is gets
 checked against the plain version; the others compute nothing useful.
 Prints one JSON line per (batch, layer), then the card's ``nvidia-smi``
 name and power limit. Needs one CUDA GPU and nvcc; imports nothing of JAX.
@@ -21,6 +22,7 @@ import math
 import pathlib
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -31,38 +33,16 @@ from chip_smoke import MIDAS_CONV2_SHAPES, time_ms  # noqa: E402
 from depth_estimation_tpu_torch.ops.kernels import build  # noqa: E402
 from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3_plain  # noqa: E402
 
-NO_STAGE = [
-    ('asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\\n" ::"r"(s), "l"(src), "r"(live ? 4 : 0));',
-     "(void)s; (void)src; (void)live;"),
-    ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(s), "l"(src), "r"(src_bytes));',
-     "(void)s; (void)src; (void)src_bytes;"),
-]
-NO_MMA = [("for (int tap = 0; tap < 9; ++tap) {", "for (int tap = 0; tap < 0; ++tap) {")]
-LAUNCH_ONLY = [("  const int buf_floats = t.ck * t.plane + t.nco * t.pco;\n",
-                "  if (h > 0) return;  // every block ends at once\n  const int buf_floats = t.ck * t.plane + t.nco * t.pco;\n")]
-VARIANTS = {"kernel": [], "no_staging": NO_STAGE, "no_mma": NO_MMA, "neither": NO_STAGE + NO_MMA,
-            "launch_only": LAUNCH_ONLY}
+VARIANTS = {"kernel": (), "no_staging": ("K4_NO_STAGE",), "no_mma": ("K4_NO_MMA",),
+            "neither": ("K4_NO_STAGE", "K4_NO_MMA"), "launch_only": ("K4_LAUNCH_ONLY",)}
 
 
-def build_variants(out_dir):
-    src = (build.CSRC / "grouped_conv.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source no longer holds {old!r} once")
-            text = text.replace(old, new)
-        (out_dir / f"{name}.cu").write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def build_variants():
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # each build waits on its own nvcc
+        list(pool.map(lambda defines: build.build(("grouped_conv",), defines), VARIANTS.values()))
     libs = {}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+    for name, defines in VARIANTS.items():
+        lib = build.load("grouped_conv", defines)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.grouped_conv3x3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         libs[name] = lib
@@ -73,7 +53,7 @@ def main():
     if not torch.cuda.is_available():
         print("k4_breakdown: no CUDA GPU is available", file=sys.stderr)
         return 1
-    libs = build_variants(build.BUILD_DIR / "breakdown")
+    libs = build_variants()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
     for batch in (1, 4):
