@@ -20,9 +20,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    checked in f32 and in bf16 at (1|4, 16, 769, 64) and (1, 16, 577, 64)
    and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) is checked
    and timed at the four MiDaS v2.1 conv2 shapes in f32 (3xTF32 on the tensor
-   cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it; its tiling
-   printed) and in bf16 (FMA units; bound at the bf16 rate), at batch 1, and
-   checked in both at batch 4, the microbatch;
+   cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it) and in bf16
+   (bf16 mma on the tensor cores; bound at the bf16 rate), each with its
+   tiling printed, at batch 1, and checked in both at batch 4, the microbatch;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
    .avi, per frame and with ``microbatch=4``, each after one untimed batch
@@ -38,13 +38,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    of the f32 map's range, its host-clock ms per frame and its K1 launches
    (asserted: 24 a frame, all on the bf16 route); then bf16_profile, phase 6
    for that bf16 estimator;
-8. midas_stream, midas_hold, midas_profile, midas_bf16 — phases 4–7 for
-   ``DepthEstimator("MiDaS")`` (v2.1 Large: ResNeXt-101 32x8d, full width),
-   whose frame program launches K4 30 times and attention never (profiled
-   at batch 1 and at the stream's microbatch of 4, where no kernel may be
-   launched more than 2,000 times a program: cuDNN's heuristic once ran a
-   head conv there as an FFT of 33,024 launches); its bf16
-   bound is 0.1, the JAX package's own (tests/test_midas_v21.py).
+8. midas_stream, midas_hold, midas_profile, midas_bf16, midas_bf16_profile
+   — phases 4–7 for ``DepthEstimator("MiDaS")`` (v2.1 Large: ResNeXt-101
+   32x8d, full width), whose frame program launches K4 30 times and
+   attention never (profiled at batch 1 and at the stream's microbatch of 4,
+   where no kernel may be launched more than 2,000 times a program: cuDNN's
+   heuristic once ran a head conv there as an FFT of 33,024 launches); its
+   bf16 bound is 0.1, the JAX package's own (tests/test_midas_v21.py), and
+   midas_bf16_profile gives the bf16 frame's busy time, idle share and K4 sum.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream), the ``nvidia-smi`` line, and last
@@ -186,8 +187,7 @@ MIDAS_CONV2_SHAPES = {"layer1": (256, 48, 64), "layer2": (512, 24, 32), "layer3"
 
 
 def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
-    from depth_estimation_tpu_torch.ops.kernels.grouped_conv import (f32_tiling, grouped_conv3x3,
-                                                                     grouped_conv3x3_plain)
+    from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3, grouped_conv3x3_plain, tiling
 
     c, h, w = MIDAS_CONV2_SHAPES[layer]
     cg = c // groups
@@ -200,9 +200,8 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
           f"grouped conv {layer} batch {batch} {dtype}: max abs err {err} over atol {tol} rtol {tol}")
     lib = lambda: F.conv2d(x, k, padding=1, groups=groups)  # noqa: E731
     row = {"layer": layer, "shape": [batch, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
-           "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item()}
-    if dtype == torch.float32:
-        row["tiling"] = f32_tiling(x.shape, groups, torch.cuda.get_device_properties(0).multi_processor_count)
+           "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item(),
+           "tiling": tiling(x.shape, groups, torch.cuda.get_device_properties(0).multi_processor_count, dtype)}
     if timed:
         nbytes = (2 * x.numel() + k.numel()) * (torch.finfo(dtype).bits // 8)
         flops = 2 * batch * h * w * c * cg * 9
@@ -212,7 +211,7 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
                        fma_bound_ms=bound_ms(nbytes, flops, PEAK_FLOPS[dtype])[0])
         else:
             bnd, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
-            row.update(bound_peak="bf16 tensor-core rate, 989 TFLOP/s (this route runs on the FMA units)")
+            row.update(bound_peak="bf16 tensor cores, 989 TFLOP/s")
         row.update(ms=time_ms(lambda: grouped_conv3x3(x, k, groups)),
                    plain_ms=time_ms(lambda: grouped_conv3x3_plain(x, k, groups)),
                    library_ms=time_ms(lib),
@@ -248,7 +247,7 @@ def run_stream(est, out_path, microbatch, per_program, phase="stream", **extra):
 
 
 K1_KERNELS = ("attention_f32_kernel", "attention_bf16_kernel")
-K4_KERNELS = ("grouped_conv3x3_tf32_kernel", "grouped_conv3x3_kernel")  # one entry per template instance
+K4_KERNELS = ("grouped_conv3x3_tf32_kernel", "grouped_conv3x3_bf16_kernel")  # one entry per template instance
 K4_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
 
 
@@ -415,7 +414,7 @@ def main():
     hold(midas, SMALL_PREPROCESS, "midas_hold")
     profile_frames(midas, frame, "midas_profile")
     profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, max_calls=2000)
-    bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16")
+    profile_frames(bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16"), frame, "midas_bf16_profile")
 
     def entry(name, source, replaces, row, path_launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,11 +6,12 @@
 // conv2 of every ResNeXt-101 32x8d bottleneck of MiDaS v2.1, 30 launches a
 // frame. The TPU kernel padded the input in HBM, computed two wrap-around
 // columns per row and built 128-lane block-diagonal weight tiles for the
-// MXU; neither route here needs any of that: both stage each group's input
+// MXU; none of that is needed here: each block stages its group's input
 // planes with a one-pixel halo in shared memory, zeros outside the image.
-// Two routes, chosen by the input type alone.
+// Two routes, chosen by the input type alone, both an implicit GEMM on the
+// tensor cores with the same tiling, staging walk and k split.
 //
-// f32: tensor cores, 3xTF32 implicit GEMM (grouped_conv3x3_tf32_kernel).
+// f32: 3xTF32 (grouped_conv3x3_tf32_kernel).
 //   Every layer does 2·H·W·C·(C/G)·9 = 113 MFLOP at a 192×256 network
 // input; as three TF32 products at 495 TFLOP/s that is 0.69 µs, under the
 // time its 2.7–6.4 MB of input, output and weights take at 3.35 TB/s
@@ -59,36 +60,58 @@
 // on the eight multiples of 4 and the four t values (input channels, 9
 // words apart) on the four residues mod 4: both conflict-free (pinned on the
 // CPU by tests/test_torch_kernels.py).
-//   Where the time goes (tools/k4_breakdown.py times builds of this kernel
-// with the staging, the mma or both taken out, by the macros K4_NO_STAGE and
-// K4_NO_MMA, or with every block ending at once, K4_LAUNCH_ONLY; the
-// library is built with none of them; PERF.md): a launch is a fixed
-// part (launch, offsets, stores) plus the staging plus the mma, which add up
-// with little overlap, because layers 1 and 3 stage one chunk a block and
-// all blocks of the single wave start at once.
+//   Where the time goes (tools/k4_breakdown.py times builds of either
+// route's kernel with the staging, the mma or both taken out, by the macros
+// K4_NO_STAGE and K4_NO_MMA, or with every block ending at once,
+// K4_LAUNCH_ONLY; the library is built with none of them; PERF.md): a
+// launch is a fixed part (launch, offsets, stores) plus the staging plus the
+// mma, which add up with little overlap, because layers 1 and 3 stage one
+// chunk a block and all blocks of the single wave start at once.
 //   The tensor cores' f32 accumulation truncates (csrc/attention.cu), and K
 // reaches 576 at layer 4, so each chunk's 27 mma an accumulator are summed
 // in fresh registers and added to the running sums with an ordinary add.
 // Pixels past the tile or the image and channels past the group are
 // computed on zeros and not stored.
 //
-// bf16: the FMA units (grouped_conv3x3_kernel<__nv_bfloat16>, the only
-// instance of that template: T is bf16 alone). 113 MFLOP
-// at 67 TFLOP/s f32 FMA is 1.7 µs, so layers 2–4 are bound by operations
-// there. One block owns one image, one group, a tile of
-// that group's output channels (a multiple of 4) and a tile of output rows
-// and columns. It loops over the group's input channels in chunks that fit
-// 48 KB of shared memory: each pass stages the chunk's weights as
-// [ci][tap][co] and the chunk's input planes, widened to f32. Each thread
-// keeps 4 output channels × 4 neighbouring pixels of a row in registers
-// and, per input channel and kernel row, reads 6 input values and 3 float4s
-// of weights for 48 FMAs; the output is rounded to bf16 once at the store.
-// The host splits the output tile (channels or rows, whichever duplicates
-// less staging) until the grid has two blocks per SM, then gives each block
-// up to 16 slices of threads over the same outputs, each summing its share
-// of the input channels; the slices' sums meet in shared memory, which also
-// lays the outputs out so the stores run along rows. Every thread stages 8
-// values a round, loads first, so 8 loads are in flight.
+// bf16: mma.sync.m16n8k16 .bf16 with f32 accumulation
+// (grouped_conv3x3_bf16_kernel): the f32 route's GEMM, tiling, staging walk
+// and k split with bf16 operands and no split. 113 MFLOP at 989 TFLOP/s is
+// 0.11 µs, so every MiDaS shape is bound by its 1.4–3.2 MB of bytes (0.4–
+// 0.95 µs). bf16 products are exact in f32, and the 1e-2 tolerance is far
+// above what truncated f32 sums lose over 576 terms, so the sums stay in the
+// accumulators across chunks and are rounded to bf16 once, at the store, as
+// the Pallas kernel and the plain version round.
+//   One k16 step is two taps × the slice's 8 input channels: k 0–7 are tap
+// 2s's channels, k 8–15 tap 2s + 1's, so the nine taps take five steps, and
+// the tenth tap's fragments are zero registers, set at compile time (no
+// shared read, so no stale value can put a NaN into the sums). At C/G = 8
+// that wastes a tenth of the mma; one tap × 16 channels would waste half.
+// Fragments (each 32-bit register two bf16, the lower k in the low half):
+//     A (16×16): a0a1 (g, 2t..) a2a3 (g+8, 2t..) a4a5 (g, 2t+8..) a6a7 (g+8, 2t+8..)
+//     B (16×8):  b0b1 (2t.., g)  b2b3 (2t+8.., g)
+// so a register of A holds channels 2t and 2t + 1 of one pixel at one tap,
+// which lie in two staged planes, and one of B those two channels' weights
+// of output channel g, 9 values apart in a weight row: each is two 16-bit
+// shared loads and a byte permute. ldmatrix does not fit: it reads 16-byte
+// aligned rows, and a tap shifts a pixel row by 2 bytes.
+//   Staging keeps the f32 layout in bf16 values: planes [ci][th + 2][rw],
+// weights [co][ci·9 + tap]. cp.async moves 4, 8 or 16 bytes, never one
+// bf16, so a staged row holds the tile's columns from element 8 (16 bytes
+// in): where W and the tile width are multiples of 8 and the tensors 16-byte
+// aligned (every MiDaS shape), the row moves in 16-byte copies of 8 values
+// and each halo as a 4-byte pair, columns c0 − 2, c0 − 1 into elements 6, 7
+// and c0 + tw, c0 + tw + 1 into tw + 8, tw + 9 (W and c0 are even, so a pair
+// lies wholly inside or outside the image); the weights move in 16-byte
+// copies where C/G is a multiple of 8. Otherwise every value is an ordinary
+// load and store, zero outside the image. rw is a multiple of 8 (16 bytes).
+//   Banks: the plane pitch is ≡ 8 (mod 32) elements, so the planes of
+// channels 2t (or 2t + 1) start 8 words apart (mod 32) for t = 0..3 and the
+// at most 5 words of eight neighbouring pixels fit between them; the weight
+// row pitch, the least ≥ ck·9 that is ≡ 8 (mod 16) elements, puts the
+// output channels g on the eight multiples of 4 words and t (a channel pair,
+// 18 elements = 9 words on) on the four residues mod 4. Lanes that read the
+// two halves of one word share it, so every 16-bit fragment read is
+// conflict-free (tests/test_torch_kernels.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,209 +119,19 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr int kMinTileThreads = 8;
-constexpr int kMaxSlices = 16;
-constexpr int kUnroll = 8;  // staging loads in flight per thread
-constexpr int kSmemBytes = 48 * 1024;
-
-struct Tiling {
-  int tco;           // output channels per block, a multiple of 4
-  int th, tw;        // output rows and columns per block; tw is a multiple of 4
-  int tile_threads;  // (tco / 4) · th · (tw / 4): one per 4 channels × 4 pixels
-  int slices;        // thread slices over the input channels; blockDim = tile_threads · slices
-  int cic;           // input channels staged per pass
-  int co_tiles, row_tiles, col_tiles;
-};
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// Stage n values into shared memory, kUnroll loads in flight per thread:
-// value i comes from load(i) and goes to dst[place(i)].
-template <typename Load, typename Place>
-__device__ __forceinline__ void stage(float* dst, int n, Load load, Place place) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += blockDim.x * kUnroll) {
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * blockDim.x;
-      v[u] = i < n ? load(i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) dst[place(i)] = v[u];
-    }
-  }
-}
-
-// grid: (row_tiles · col_tiles, groups · co_tiles, batch); block: tile_threads · slices.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-grouped_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                       int channels, int h, int wd, int cg, Tiling t) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [cic][9][tco]
-  float* xs = ws + t.cic * 9 * t.tco;           // [cic][th + 2][tw + 2]
-  const int pitch = t.tw + 2;
-  const int plane = (t.th + 2) * pitch;
-
-  const int r0 = (blockIdx.x / t.col_tiles) * t.th;
-  const int c0 = (blockIdx.x % t.col_tiles) * t.tw;
-  const int g = blockIdx.y / t.co_tiles;
-  const int co0 = (blockIdx.y % t.co_tiles) * t.tco;  // within the group
-  const int b = blockIdx.z;
-
-  const int ncq = t.tco / 4;
-  const int qpr = t.tw / 4;
-  const int npq = t.th * qpr;
-  const int tt = threadIdx.x % t.tile_threads;
-  const int slice = threadIdx.x / t.tile_threads;
-  const int cq = tt % ncq;  // output-channel quad: fastest, so a warp shares input reads
-  const int pq = tt / ncq;  // pixel quad
-  const int row_l = pq / qpr;
-  const int col_l = (pq % qpr) * 4;
-
-  const long long hw = (long long)h * wd;
-  const T* xg = x + ((long long)b * channels + (long long)g * cg) * hw;
-  const T* wg = w + ((long long)g * cg + co0) * cg * 9;
-
-  float acc[4][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) acc[k][p] = 0.f;
-
-  for (int ci0 = 0; ci0 < cg; ci0 += t.cic) {
-    const int nci = min(t.cic, cg - ci0);
-    const int per_co = nci * 9;
-    __syncthreads();  // the previous pass has finished reading
-    stage(ws, t.tco * per_co,
-          [&](int i) {  // (co, ci·9 + tap): contiguous in memory for each co
-            const int co = i / per_co;
-            return co0 + co < cg ? to_f32(wg[(long long)co * cg * 9 + ci0 * 9 + (i - co * per_co)]) : 0.f;
-          },
-          [&](int i) {
-            const int co = i / per_co;
-            return (i - co * per_co) * t.tco + co;
-          });
-    stage(xs, nci * plane,
-          [&](int i) {
-            const int ci = i / plane, rem = i - ci * plane;
-            const int row = r0 - 1 + rem / pitch, col = c0 - 1 + rem % pitch;
-            return row >= 0 && row < h && col >= 0 && col < wd
-                       ? to_f32(xg[(ci0 + ci) * hw + (long long)row * wd + col])
-                       : 0.f;
-          },
-          [](int i) { return i; });
-    __syncthreads();
-    for (int ci = slice; ci < nci; ci += t.slices) {
-      const float* xp = xs + ci * plane + row_l * pitch + col_l;
-      const float* wp = ws + ci * 9 * t.tco + cq * 4;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        float xv[6];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) xv[j] = xp[dy * pitch + j];
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 wv = *reinterpret_cast<const float4*>(wp + (dy * 3 + dx) * t.tco);
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            acc[0][p] = fmaf(wv.x, xv[p + dx], acc[0][p]);
-            acc[1][p] = fmaf(wv.y, xv[p + dx], acc[1][p]);
-            acc[2][p] = fmaf(wv.z, xv[p + dx], acc[2][p]);
-            acc[3][p] = fmaf(wv.w, xv[p + dx], acc[3][p]);
-          }
-        }
-      }
-    }
-  }
-
-  // The slices' partial sums, laid out per slice in output order
-  // o = ((k·ncq + cq)·npq + pq)·4 + p, so that consecutive o run along a row.
-  const int n_out = 16 * t.tile_threads;
-  float* red = reinterpret_cast<float*>(smem4);
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    *reinterpret_cast<float4*>(red + slice * n_out + ((k * ncq + cq) * npq + pq) * 4) =
-        make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
-  __syncthreads();
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    float sum = 0.f;
-    for (int s = 0; s < t.slices; ++s) sum += red[s * n_out + o];
-    const int p = o % 4, q = (o / 4) % npq, r = o / (4 * npq);  // r = k·ncq + cq
-    const int chan = co0 + (r % ncq) * 4 + r / ncq;
-    const int row = r0 + q / qpr, col = c0 + (q % qpr) * 4 + p;
-    if (chan < cg && row < h && col < wd)
-      store(y + (((long long)b * channels + (long long)g * cg + chan) * h + row) * wd + col, sum);
-  }
-}
+constexpr int kWarps = 4;
+constexpr int kGemmThreads = 32 * kWarps;
+constexpr int kMaxMt = 4;                               // m16 pixel tiles a warp
+constexpr int kMaxTilePixels = 16 * kMaxMt * kWarps;   // 256
+constexpr int kMaxTileCols = 64;
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // The largest row tile of at most `rows` that splits h into equal-ish tiles.
 int balanced_rows(int h, int rows) { return ceil_div(h, ceil_div(h, rows > 0 ? rows : 1)); }
 
-Tiling pick_tiling(int batch, int groups, int cg, int h, int wd, int sms) {
-  Tiling t;
-  t.tw = wd <= 4 ? 4 : wd <= 8 ? 8 : wd <= 16 ? 16 : 32;
-  t.tco = ceil_div(cg, 4) * 4 < 32 ? ceil_div(cg, 4) * 4 : 32;
-  const int qpr = t.tw / 4;
-  t.th = balanced_rows(h, kMaxThreads / (t.tco / 4 * qpr));
-  auto threads = [&](int tco, int th) { return tco / 4 * th * qpr; };
-  auto blocks = [&](int tco, int th) {
-    return (long long)batch * groups * ceil_div(cg, tco) * ceil_div(h, th) * ceil_div(wd, t.tw);
-  };
-  while (blocks(t.tco, t.th) < 2LL * sms) {
-    const int tco2 = t.tco / 2, th2 = balanced_rows(h, ceil_div(t.th, 2));
-    const bool co_ok = tco2 % 4 == 0 && tco2 > 0 && threads(tco2, t.th) >= kMinTileThreads;
-    const bool rows_ok = th2 < t.th && threads(t.tco, th2) >= kMinTileThreads;
-    // Splitting channels stages the input tile again; splitting rows stages the weights again.
-    const bool prefer_co = (t.th + 2) * (t.tw + 2) < 9 * t.tco;
-    if (co_ok && (prefer_co || !rows_ok)) {
-      t.tco = tco2;
-    } else if (rows_ok) {
-      t.th = th2;
-    } else {
-      break;
-    }
-  }
-  t.tile_threads = threads(t.tco, t.th);
-  t.slices = 1;
-  while (t.slices * 2 <= kMaxSlices && t.slices * 2 <= cg && t.tile_threads * t.slices * 2 <= kMaxThreads)
-    t.slices *= 2;
-  t.co_tiles = ceil_div(cg, t.tco);
-  t.row_tiles = ceil_div(h, t.th);
-  t.col_tiles = ceil_div(wd, t.tw);
-  const int per_ci = (9 * t.tco + (t.th + 2) * (t.tw + 2)) * (int)sizeof(float);
-  t.cic = kSmemBytes / per_ci < cg ? kSmemBytes / per_ci : cg;
-  return t;
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* w, void* y, int batch, int channels, int h, int wd,
-                   int groups, const Tiling& t, cudaStream_t stream) {
-  const dim3 grid(t.row_tiles * t.col_tiles, groups * t.co_tiles, batch);
-  const int threads = t.tile_threads * t.slices;
-  const size_t staging = (size_t)t.cic * (9 * t.tco + (t.th + 2) * (t.tw + 2));
-  const size_t reduction = (size_t)16 * threads;
-  const size_t smem = (staging > reduction ? staging : reduction) * sizeof(float);
-  grouped_conv3x3_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), channels, h, wd,
-      channels / groups, t);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------- f32: 3xTF32 implicit GEMM
-
-constexpr int kWarps = 4;
-constexpr int kGemmThreads = 32 * kWarps;
-constexpr int kMaxMt = 4;                               // m16 pixel tiles a warp
-constexpr int kMaxTilePixels = 16 * kMaxMt * kWarps;   // 256
-constexpr int kMaxTileCols = 64;
+// The least m ≥ n with m ≡ r (mod q).
+int pad_to(int n, int r, int q) { return n + ((r - n % q) % q + q) % q; }
 
 struct GemmTiling {
   int nco;          // output channels a block: 8, 16 or 32, nco / 8 n8 tiles
@@ -307,28 +140,29 @@ struct GemmTiling {
   int mt;           // m16 pixel tiles a warp
   int ck;           // input channels a chunk, 8·wk
   int chunks;
-  int rw;           // staged input row pitch, tw + 8: the halo at column 3, the row's values from column 4
-  int plane;        // staged input plane pitch in words, ≥ (th + 2)·rw, ≡ 8 (mod 16)
-  int pco;          // staged weight row pitch (one output channel's ck·9 values) in words, ≡ 4 (mod 8)
-  int xv, wv;       // values a staging copy: 4 (16 bytes) where rows are 16-byte aligned, else 1
+  // Pitches in values of the route's type. f32: rw = tw + 8 (the halo at
+  // column 3, the row from 4), plane ≡ 8 (mod 16), pco = ck·9 + 4 ≡ 4 (mod 8).
+  // bf16: rw the multiple of 8 ≥ tw + 10 (halo pairs at 6 and tw + 8, the row
+  // from 8), plane ≡ 8 (mod 32), pco the least ≥ ck·9 that is ≡ 8 (mod 16).
+  int rw;           // staged input row pitch
+  int plane;        // staged input plane pitch
+  int pco;          // staged weight row pitch (one output channel's ck·9 values)
+  int xv, wv;       // values a staging copy: 16 bytes where rows are 16-byte aligned, else 1
   int xu, wu;       // copies a staged input row (2 halo + tw / xv) and a weight row (ck·9 / wv)
   int co_tiles, row_tiles, col_tiles;
-  int smem_floats;
+  int smem_bytes;
 };
-
-// The least m ≥ n with m ≡ 8 (mod 16): four rows of pitch m start on four distinct bank octets.
-int pad_to_octet(int n) { return n + ((8 - n % 16) % 16 + 16) % 16; }
 
 // K4_NO_STAGE (a breakdown build): the copies are not issued, and the k loop
 // multiplies whatever shared memory holds.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
 #ifndef K4_NO_STAGE
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes));
 #endif
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool live) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
 #ifndef K4_NO_STAGE
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(live ? 4 : 0));
@@ -336,6 +170,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool liv
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// One bf16 value by an ordinary load and store, 0 where it is not live.
+__device__ __forceinline__ void copy16(uint16_t* dst, const uint16_t* src, bool live) {
+#ifndef K4_NO_STAGE
+  *dst = live ? *src : uint16_t(0);
+#endif
+}
 
 // K4_NO_MMA (a breakdown build): the k loop has no taps; the chunks are staged and zeros stored.
 #ifdef K4_NO_MMA
@@ -364,6 +205,129 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// d += a · b for one m16n8k16 bf16 tile (fragments as in the note above).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two bf16 values from shared memory as one fragment register: p[lo] in the low half.
+__device__ __forceinline__ uint32_t pair(const uint16_t* p, int lo, int hi) {
+  return __byte_perm(p[lo], p[hi], 0x5410);
+}
+
+// Fragment rows g and g + 8 of each m16 tile of warp wm: the offset of the
+// pixel's 3×3 window in a staged plane (its top-left halo value sits at
+// column pc + col0 of the pixel's row) ...
+template <int MT>
+__device__ __forceinline__ void fragment_offsets(const GemmTiling& t, int wm, int g, int col0, int (&a_off)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = (wm * MT + mt) * 16 + g + 8 * hh;
+      const int pr = p / t.tw, pc = p - pr * t.tw;
+      a_off[mt][hh] = p < t.th * t.tw ? pr * t.rw + pc + col0 : 0;
+    }
+}
+
+// ... and the pixel's index in the output plane (-1: past the tile or the
+// image, computed on and not stored).
+template <int MT>
+__device__ __forceinline__ void output_pixels(const GemmTiling& t, int wm, int g, int r0, int c0, int h, int wd,
+                                              int (&y_pix)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int p = (wm * MT + mt) * 16 + g + 8 * hh;
+      const int pr = p / t.tw, pc = p - pr * t.tw;
+      y_pix[mt][hh] = p < t.th * t.tw && r0 + pr < h && c0 + pc < wd ? (r0 + pr) * wd + c0 + pc : -1;
+    }
+}
+
+// Staging walks a chunk's copies in steps of kGemmThreads: input copies
+// [ci][th + 2][xu] (a halo, or xv values of a row), then weight copies
+// [co][wu]. Each thread's first copy and the step are split into those
+// radices once, so each next copy follows by adds and carries.
+struct Walk {
+  int ci, rr, cc, s_ci, s_rr, s_cc;  // input copies: this thread's first, and the step
+  int co, j, s_co, s_j;              // weight copies
+  __device__ __forceinline__ explicit Walk(const GemmTiling& t) {
+    const int th2 = t.th + 2;
+    const int x_row = threadIdx.x / t.xu;
+    cc = threadIdx.x - x_row * t.xu;
+    ci = x_row / th2;
+    rr = x_row - ci * th2;
+    const int sx_rows = kGemmThreads / t.xu;
+    s_cc = kGemmThreads - sx_rows * t.xu;
+    s_ci = sx_rows / th2;
+    s_rr = sx_rows - s_ci * th2;
+    co = threadIdx.x / t.wu;
+    j = threadIdx.x - co * t.wu;
+    s_co = kGemmThreads / t.wu;
+    s_j = kGemmThreads - s_co * t.wu;
+  }
+};
+
+// The k split: slices 1 .. wk-1 leave their sums in shared memory (free
+// after the last barrier), slice 0 adds them in slice order. Returns whether
+// this warp stores.
+template <int MT, int NT>
+__device__ __forceinline__ bool merge_slices(float (&acc)[MT][NT][4], float* smem, int wk, int ks, int wm,
+                                             int wm_count, int lane) {
+  if (wk == 1) return true;
+  constexpr int kFrag = MT * NT * 4 * 32;  // one warp's sums
+  if (ks > 0) {
+    float* red = smem + ((ks - 1) * wm_count + wm) * kFrag + lane;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[((mt * NT + nt) * 4 + e) * 32] = acc[mt][nt][e];
+  }
+  __syncthreads();
+  if (ks > 0) return false;
+  for (int s = 1; s < wk; ++s) {
+    const float* src = smem + ((s - 1) * wm_count + wm) * kFrag + lane;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += src[((mt * NT + nt) * 4 + e) * 32];
+  }
+  return true;
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(uint16_t* p, float v) { *p = __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+
+// The C fragments to the output planes of the block's channels: yg is channel co0's plane of this image.
+template <int MT, int NT, typename T>
+__device__ __forceinline__ void store_tile(T* yg, long long hw, int cg, int co0, int tq,
+                                           const float (&acc)[MT][NT][4], const int (&y_pix)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (y_pix[mt][hh] < 0) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = 8 * nt + 2 * tq + e;
+          if (co0 + co < cg) put(yg + co * hw + y_pix[mt][hh], acc[mt][nt][2 * hh + e]);
+        }
+    }
+}
+
+// ---------------------------------------------------- f32: 3xTF32 implicit GEMM
 
 // grid: (row_tiles · col_tiles, groups · co_tiles, batch); block: kGemmThreads.
 // MT = t.mt m16 pixel tiles a warp, NT = t.nco / 8 n8 channel tiles.
@@ -394,41 +358,19 @@ grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict
   const int wm = warp % wm_count;  // this warp's share of the pixel tiles
   const int ks = warp / wm_count;  // and of each chunk's input channels: 8·ks .. 8·ks + 7
 
-  // Fragment rows g and g + 8 of each m16 tile: the offset of the pixel's 3×3
-  // window in a staged plane (its top-left halo value sits at column pc + 3),
-  // and the pixel's index in the output plane (-1: past the tile or the
-  // image, computed on and not stored).
-  const int np = t.th * t.tw;
   int a_off[MT][2], y_pix[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int p = (wm * MT + mt) * 16 + g + 8 * hh;
-      const int pr = p / t.tw, pc = p - pr * t.tw;
-      a_off[mt][hh] = p < np ? pr * t.rw + pc + 3 : 0;
-      y_pix[mt][hh] = p < np && r0 + pr < h && c0 + pc < wd ? (r0 + pr) * wd + c0 + pc : -1;
-    }
+  fragment_offsets<MT>(t, wm, g, 3, a_off);
+  output_pixels<MT>(t, wm, g, r0, c0, h, wd, y_pix);
 
   const long long hw = (long long)h * wd;
   const float* xg = x + ((long long)b * channels + (long long)grp * cg) * hw;
   const float* wg = w + ((long long)grp * cg + co0) * cg * 9;
 
-  // Staging walks the chunk's copies in steps of kGemmThreads: input copies
-  // [ci][th + 2][xu] (a halo value, or xv values of the row), then weight
-  // copies [co][wu]. Each thread's first copy and the step are split into
-  // those radices once, so each next copy follows by adds and carries.
   const int th2 = t.th + 2, n_x = t.ck * th2 * t.xu, n_w = t.nco * t.wu;
-  const int x_row = threadIdx.x / t.xu, x_cc = threadIdx.x - x_row * t.xu;
-  const int x_ci = x_row / th2, x_rr = x_row - x_ci * th2;
-  const int sx_rows = kGemmThreads / t.xu, sx_cc = kGemmThreads - sx_rows * t.xu;
-  const int sx_ci = sx_rows / th2, sx_rr = sx_rows - sx_ci * th2;
-  const int w_co = threadIdx.x / t.wu, w_j = threadIdx.x - w_co * t.wu;
-  const int sw_co = kGemmThreads / t.wu, sw_j = kGemmThreads - sw_co * t.wu;
-
+  const Walk walk(t);
   const auto stage_chunk = [&](int chunk, float* buf) {
     const int ci0 = chunk * t.ck;
-    int ci = x_ci, rr = x_rr, cc = x_cc;
+    int ci = walk.ci, rr = walk.rr, cc = walk.cc;
     for (int i = threadIdx.x; i < n_x; i += kGemmThreads) {
       const int c = ci0 + ci, row = r0 - 1 + rr;
       const bool row_live = c < cg && row >= 0 && row < h;
@@ -442,15 +384,15 @@ grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict
         const bool live = row_live && c0 + col >= 0 && c0 + col < wd;
         cp_async4(dst + col, live ? xg + c * hw + (long long)row * wd + c0 + col : x, live);
       }
-      cc += sx_cc;
-      rr += sx_rr;
-      ci += sx_ci;
+      cc += walk.s_cc;
+      rr += walk.s_rr;
+      ci += walk.s_ci;
       if (cc >= t.xu) { cc -= t.xu; ++rr; }
       if (rr >= th2) { rr -= th2; ++ci; }
     }
     // weights as stored, [co][ci·9 + tap]: the chunk's ck·9 values of each output channel are contiguous
     float* ws = buf + t.ck * t.plane;
-    int co = w_co, j = w_j;
+    int co = walk.co, j = walk.j;
     for (int i = threadIdx.x; i < n_w; i += kGemmThreads) {
       const int f0 = ci0 * 9 + t.wv * j;  // the copy's first value in the row of co
       const int valid = co0 + co < cg ? min(max(cg * 9 - f0, 0), t.wv) : 0;  // values below ci = C/G
@@ -460,8 +402,8 @@ grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict
       } else {
         cp_async4(ws + co * t.pco + j, src, valid > 0);
       }
-      j += sw_j;
-      co += sw_co;
+      j += walk.s_j;
+      co += walk.s_co;
       if (j >= t.wu) { j -= t.wu; ++co; }
     }
   };
@@ -531,50 +473,141 @@ grouped_conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict
     __syncthreads();  // all reads of this chunk's buffer are done before it is refilled
   }
 
-  // The k split: slices 1 .. wk-1 leave their sums in shared memory (free
-  // after the last barrier), slice 0 adds them in slice order and stores.
-  if (t.wk > 1) {
-    constexpr int kFrag = MT * NT * 4 * 32;  // one warp's sums
-    if (ks > 0) {
-      float* red = smem + ((ks - 1) * wm_count + wm) * kFrag + lane;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) red[((mt * NT + nt) * 4 + e) * 32] = acc[mt][nt][e];
-    }
-    __syncthreads();
-    if (ks > 0) return;
-    for (int s = 1; s < t.wk; ++s) {
-      const float* src = smem + ((s - 1) * wm_count + wm) * kFrag + lane;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += src[((mt * NT + nt) * 4 + e) * 32];
-    }
-  }
+  if (!merge_slices<MT, NT>(acc, smem, t.wk, ks, wm, wm_count, lane)) return;
+  store_tile<MT, NT>(y + ((long long)b * channels + (long long)grp * cg + co0) * hw, hw, cg, co0, tq, acc, y_pix);
+}
 
-  float* yg = y + ((long long)b * channels + (long long)grp * cg + co0) * hw;
+// ---------------------------------------------------- bf16: mma.sync.m16n8k16 implicit GEMM
+
+// As the f32 kernel, on bf16 bits (x, w, y) and the bf16 pitches; the same launch bounds.
+template <int MT, int NT>
+__global__ void __launch_bounds__(kGemmThreads, MT * NT <= 4 ? 3 : 1)
+grouped_conv3x3_bf16_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
+                            uint16_t* __restrict__ y, int channels, int h, int wd, int cg, GemmTiling t) {
+#ifdef K4_LAUNCH_ONLY  // a breakdown build: every block ends at once
+  if (h > 0) return;
+#endif
+  extern __shared__ float4 smem4[];
+  uint16_t* smem = reinterpret_cast<uint16_t*>(smem4);  // two buffers, each input planes then weights
+  const int buf_elems = t.ck * t.plane + t.nco * t.pco;
+
+  const int r0 = (blockIdx.x / t.col_tiles) * t.th;
+  const int c0 = (blockIdx.x % t.col_tiles) * t.tw;
+  const int grp = blockIdx.y / t.co_tiles;
+  const int co0 = (blockIdx.y % t.co_tiles) * t.nco;  // within the group
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm_count = kWarps / t.wk;
+  const int wm = warp % wm_count;
+  const int ks = warp / wm_count;
+
+  int a_off[MT][2];
+  fragment_offsets<MT>(t, wm, g, 7, a_off);
+
+  const long long hw = (long long)h * wd;
+  const uint16_t* xg = x + ((long long)b * channels + (long long)grp * cg) * hw;
+  const uint16_t* wg = w + ((long long)grp * cg + co0) * cg * 9;
+
+  const int th2 = t.th + 2, n_x = t.ck * th2 * t.xu, n_w = t.nco * t.wu;
+  const Walk walk(t);
+  const auto stage_chunk = [&](int chunk, uint16_t* buf) {
+    const int ci0 = chunk * t.ck;
+    int ci = walk.ci, rr = walk.rr, cc = walk.cc;
+    for (int i = threadIdx.x; i < n_x; i += kGemmThreads) {
+      const int c = ci0 + ci, row = r0 - 1 + rr;
+      const bool row_live = c < cg && row >= 0 && row < h;
+      uint16_t* dst = buf + ci * t.plane + rr * t.rw + 8;  // column 0 of the tile
+      const uint16_t* src = xg + c * hw + (long long)row * wd + c0;
+      if (t.xv == 8) {
+        if (cc >= 2) {  // 8 values of the row, 16-byte aligned
+          const int col = 8 * (cc - 2);
+          const bool live = row_live && c0 + col < wd;
+          cp_async16(dst + col, live ? src + col : x, live ? 16 : 0);
+        } else {  // a halo pair: columns -2, -1 or tw, tw + 1, both in the image or both out
+          const int col = cc == 0 ? -2 : t.tw;
+          const bool live = row_live && c0 + col >= 0 && c0 + col < wd;
+          cp_async4(dst + col, live ? src + col : x, live);
+        }
+      } else {  // one value of a row that is not 16-byte aligned: columns -1 .. tw
+        const int col = cc - 1;
+        copy16(dst + col, src + col, row_live && c0 + col >= 0 && c0 + col < wd);
+      }
+      cc += walk.s_cc;
+      rr += walk.s_rr;
+      ci += walk.s_ci;
+      if (cc >= t.xu) { cc -= t.xu; ++rr; }
+      if (rr >= th2) { rr -= th2; ++ci; }
+    }
+    uint16_t* ws = buf + t.ck * t.plane;
+    int co = walk.co, j = walk.j;
+    for (int i = threadIdx.x; i < n_w; i += kGemmThreads) {
+      const int f0 = ci0 * 9 + t.wv * j;
+      const int valid = co0 + co < cg ? min(max(cg * 9 - f0, 0), t.wv) : 0;
+      const uint16_t* src = valid > 0 ? wg + (long long)co * cg * 9 + f0 : w;
+      if (t.wv == 8) {
+        cp_async16(ws + co * t.pco + 8 * j, src, 2 * valid);
+      } else {
+        copy16(ws + co * t.pco + j, src, valid > 0);
+      }
+      j += walk.s_j;
+      co += walk.s_co;
+      if (j >= t.wu) { j -= t.wu; ++co; }
+    }
+  };
+
+  float acc[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      if (y_pix[mt][hh] < 0) continue;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int pco8 = 8 * t.pco;
+  stage_chunk(0, smem);
+  cp_async_commit();
+  for (int chunk = 0; chunk < t.chunks; ++chunk) {
+    if (chunk + 1 < t.chunks)
+      stage_chunk(chunk + 1, smem + ((chunk + 1) & 1) * buf_elems);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    const uint16_t* xs = smem + (chunk & 1) * buf_elems + (8 * ks + 2 * tq) * t.plane;  // channel 2t of the slice
+    const uint16_t* ws = smem + (chunk & 1) * buf_elems + t.ck * t.plane + g * t.pco + (8 * ks + 2 * tq) * 9;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int co = 8 * nt + 2 * tq + e;
-          if (co0 + co < cg) yg[co * hw + y_pix[mt][hh]] = acc[mt][nt][2 * hh + e];
-        }
+    for (int step = 0; step < (kTaps + 1) / 2; ++step) {
+      const int tap0 = 2 * step, tap1 = 2 * step + 1;  // tap1 = 9: the zero tap
+      const int off0 = (tap0 / 3) * t.rw + tap0 % 3, off1 = (tap1 / 3) * t.rw + tap1 % 3;
+      uint32_t a[MT][4], bw[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pair(xs, a_off[mt][0] + off0, t.plane + a_off[mt][0] + off0);  // (g, 2t..)
+        a[mt][1] = pair(xs, a_off[mt][1] + off0, t.plane + a_off[mt][1] + off0);  // (g+8, 2t..)
+        a[mt][2] = tap1 < 9 ? pair(xs, a_off[mt][0] + off1, t.plane + a_off[mt][0] + off1) : 0u;
+        a[mt][3] = tap1 < 9 ? pair(xs, a_off[mt][1] + off1, t.plane + a_off[mt][1] + off1) : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        bw[nt][0] = pair(ws, nt * pco8 + tap0, nt * pco8 + 9 + tap0);  // (ci 2t.., co g) at tap0
+        bw[nt][1] = tap1 < 9 ? pair(ws, nt * pco8 + tap1, nt * pco8 + 9 + tap1) : 0u;
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a[mt], bw[nt]);
     }
+    __syncthreads();
+  }
+
+  if (!merge_slices<MT, NT>(acc, reinterpret_cast<float*>(smem4), t.wk, ks, wm, wm_count, lane)) return;
+  int y_pix[MT][2];  // worked out here, not held through the k loop: at MT = 4 those 8 registers made ptxas spill
+  output_pixels<MT>(t, wm, g, r0, c0, h, wd, y_pix);
+  store_tile<MT, NT>(y + ((long long)b * channels + (long long)grp * cg + co0) * hw, hw, cg, co0, tq, acc, y_pix);
 }
 
 // x16, w16: whether x and w are 16-byte aligned.
-GemmTiling pick_gemm_tiling(int batch, int groups, int cg, int h, int wd, int sms, bool x16, bool w16) {
+GemmTiling pick_gemm_tiling(int batch, int groups, int cg, int h, int wd, int sms, bool bf16, bool x16, bool w16) {
   GemmTiling t;
   t.nco = cg <= 8 ? 8 : cg <= 16 ? 16 : 32;
   t.tw = wd <= kMaxTileCols ? wd : ceil_div(wd, ceil_div(wd, kMaxTileCols));
@@ -609,96 +642,94 @@ GemmTiling pick_gemm_tiling(int batch, int groups, int cg, int h, int wd, int sm
   }
   t.ck = 8 * t.wk;
   t.chunks = ceil_div(cg, t.ck);
-  t.rw = t.tw + 8;
-  t.plane = pad_to_octet((t.th + 2) * t.rw);
-  t.pco = 9 * t.ck + 4;
-  t.xv = x16 && wd % 4 == 0 && t.tw % 4 == 0 ? 4 : 1;
-  t.wv = w16 && cg % 4 == 0 ? 4 : 1;
+  const int vec = bf16 ? 8 : 4;  // values in 16 bytes
+  t.rw = bf16 ? ceil_div(t.tw + 10, 8) * 8 : t.tw + 8;
+  t.plane = bf16 ? pad_to((t.th + 2) * t.rw, 8, 32) : pad_to((t.th + 2) * t.rw, 8, 16);
+  t.pco = bf16 ? pad_to(9 * t.ck, 8, 16) : pad_to(9 * t.ck, 4, 8);
+  t.xv = x16 && wd % vec == 0 && t.tw % vec == 0 ? vec : 1;
+  t.wv = w16 && cg % vec == 0 ? vec : 1;
   t.xu = 2 + t.tw / t.xv;
   t.wu = 9 * t.ck / t.wv;
   t.co_tiles = ceil_div(cg, t.nco);
   t.row_tiles = ceil_div(h, t.th);
   t.col_tiles = ceil_div(wd, t.tw);
-  const int staging = (t.chunks > 1 ? 2 : 1) * (t.ck * t.plane + t.nco * t.pco);  // one buffer for one chunk
-  const int reduction = (t.wk - 1) * (kWarps / t.wk) * t.mt * (t.nco / 8) * 4 * 32;
-  t.smem_floats = staging > reduction ? staging : reduction;
+  const int staging = (t.chunks > 1 ? 2 : 1) * (t.ck * t.plane + t.nco * t.pco) * (bf16 ? 2 : 4);
+  const int reduction = (t.wk - 1) * (kWarps / t.wk) * t.mt * (t.nco / 8) * 4 * 32 * 4;  // f32 sums
+  t.smem_bytes = staging > reduction ? staging : reduction;
   return t;
 }
 
-template <int MT, int NT>
-cudaError_t launch_tf32(const float* x, const float* w, float* y, int batch, int channels, int h, int wd,
-                        int groups, const GemmTiling& t, cudaStream_t stream) {
-  const auto kernel = grouped_conv3x3_tf32_kernel<MT, NT>;
-  const int smem = t.smem_floats * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, const void* x, const void* w, void* y, int batch, int channels, int h, int wd,
+                   int groups, const GemmTiling& t, cudaStream_t stream) {
+  if (t.smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem_bytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(t.row_tiles * t.col_tiles, groups * t.co_tiles, batch);
-  kernel<<<grid, kGemmThreads, smem, stream>>>(x, w, y, channels, h, wd, channels / groups, t);
+  kernel<<<grid, kGemmThreads, t.smem_bytes, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                                       static_cast<T*>(y), channels, h, wd, channels / groups, t);
   return cudaGetLastError();
 }
 
+template <int MT, int NT>
+cudaError_t launch_route(bool bf16, const void* x, const void* w, void* y, int batch, int channels, int h, int wd,
+                         int groups, const GemmTiling& t, cudaStream_t stream) {
+  if (bf16)
+    return launch<uint16_t>(grouped_conv3x3_bf16_kernel<MT, NT>, x, w, y, batch, channels, h, wd, groups, t, stream);
+  return launch<float>(grouped_conv3x3_tf32_kernel<MT, NT>, x, w, y, batch, channels, h, wd, groups, t, stream);
+}
+
 template <int MT>
-cudaError_t launch_tf32_nt(const float* x, const float* w, float* y, int batch, int channels, int h, int wd,
-                           int groups, const GemmTiling& t, cudaStream_t stream) {
+cudaError_t launch_nt(bool bf16, const void* x, const void* w, void* y, int batch, int channels, int h, int wd,
+                      int groups, const GemmTiling& t, cudaStream_t stream) {
   switch (t.nco) {
-    case 8: return launch_tf32<MT, 1>(x, w, y, batch, channels, h, wd, groups, t, stream);
-    case 16: return launch_tf32<MT, 2>(x, w, y, batch, channels, h, wd, groups, t, stream);
-    case 32: return launch_tf32<MT, 4>(x, w, y, batch, channels, h, wd, groups, t, stream);
+    case 8: return launch_route<MT, 1>(bf16, x, w, y, batch, channels, h, wd, groups, t, stream);
+    case 16: return launch_route<MT, 2>(bf16, x, w, y, batch, channels, h, wd, groups, t, stream);
+    case 32: return launch_route<MT, 4>(bf16, x, w, y, batch, channels, h, wd, groups, t, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_f32(const void* xv, const void* wv, void* yv, int batch, int channels, int h, int wd,
-                       int groups, const GemmTiling& t, cudaStream_t stream) {
-  const float* x = static_cast<const float*>(xv);
-  const float* w = static_cast<const float*>(wv);
-  float* y = static_cast<float*>(yv);
-  switch (t.mt) {
-    case 1: return launch_tf32_nt<1>(x, w, y, batch, channels, h, wd, groups, t, stream);
-    case 2: return launch_tf32_nt<2>(x, w, y, batch, channels, h, wd, groups, t, stream);
-    case 3: return launch_tf32_nt<3>(x, w, y, batch, channels, h, wd, groups, t, stream);
-    case 4: return launch_tf32_nt<4>(x, w, y, batch, channels, h, wd, groups, t, stream);
-  }
-  return cudaErrorInvalidValue;
+bool valid_shape(int batch, int channels, int h, int wd, int groups, int sms) {
+  return batch >= 1 && batch <= 65535 && channels >= 1 && h >= 1 && wd >= 1 && groups >= 1 &&
+         channels % groups == 0 && sms >= 1;
 }
 
 }  // namespace
 
 // x: contiguous (batch, channels, h, w); weight: contiguous
 // (channels, channels / groups, 3, 3); y: contiguous like x. dtype 0 is
-// float32 (3xTF32 on the tensor cores), 1 is bfloat16 (FMA units), all
-// three tensors. sms: the card's SM count, for the tiling.
+// float32 (3xTF32), 1 is bfloat16, all three tensors. sms: the card's SM
+// count, for the tiling.
 extern "C" int grouped_conv3x3(const void* x, const void* w, void* y, int batch, int channels,
                                int h, int wd, int groups, int dtype, int sms, void* stream) {
-  if (batch < 1 || batch > 65535 || channels < 1 || h < 1 || wd < 1 || groups < 1 ||
-      channels % groups != 0 || sms < 1)
+  if (!valid_shape(batch, channels, h, wd, groups, sms) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  const GemmTiling t = pick_gemm_tiling(batch, groups, channels / groups, h, wd, sms, bf16,
+                                        reinterpret_cast<uintptr_t>(x) % 16 == 0,
+                                        reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  if ((long long)groups * t.co_tiles > 65535) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const GemmTiling t = pick_gemm_tiling(batch, groups, channels / groups, h, wd, sms,
-                                          reinterpret_cast<uintptr_t>(x) % 16 == 0,
-                                          reinterpret_cast<uintptr_t>(w) % 16 == 0);
-    if ((long long)groups * t.co_tiles > 65535) return cudaErrorInvalidValue;
-    return launch_f32(x, w, y, batch, channels, h, wd, groups, t, s);
-  }
-  if (dtype == 1) {
-    const Tiling t = pick_tiling(batch, groups, channels / groups, h, wd, sms);
-    if ((long long)groups * t.co_tiles > 65535 || t.cic < 1) return cudaErrorInvalidValue;
-    return launch<__nv_bfloat16>(x, w, y, batch, channels, h, wd, groups, t, s);
+  switch (t.mt) {
+    case 1: return launch_nt<1>(bf16, x, w, y, batch, channels, h, wd, groups, t, s);
+    case 2: return launch_nt<2>(bf16, x, w, y, batch, channels, h, wd, groups, t, s);
+    case 3: return launch_nt<3>(bf16, x, w, y, batch, channels, h, wd, groups, t, s);
+    case 4: return launch_nt<4>(bf16, x, w, y, batch, channels, h, wd, groups, t, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// The f32 route's tiling for these arguments and 16-byte aligned tensors:
-// out = {nco, th, tw, wk, mt, plane, pco, smem bytes}.
-extern "C" int grouped_conv3x3_f32_tiling(int batch, int channels, int h, int wd, int groups, int sms,
-                                          int* out) {
-  if (batch < 1 || channels < 1 || h < 1 || wd < 1 || groups < 1 || channels % groups != 0 || sms < 1)
+// The tiling of route dtype (0 f32, 1 bf16) for these arguments and 16-byte
+// aligned tensors: out = {nco, th, tw, wk, mt, rw, plane, pco, smem bytes},
+// pitches in values of the route's type.
+extern "C" int grouped_conv3x3_tiling(int batch, int channels, int h, int wd, int groups, int dtype, int sms,
+                                      int* out) {
+  if (!valid_shape(batch, channels, h, wd, groups, sms) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const GemmTiling t = pick_gemm_tiling(batch, groups, channels / groups, h, wd, sms, true, true);
-  const int fields[] = {t.nco, t.th, t.tw, t.wk, t.mt, t.plane, t.pco, t.smem_floats * (int)sizeof(float)};
-  for (int i = 0; i < 8; ++i) out[i] = fields[i];
+  const GemmTiling t = pick_gemm_tiling(batch, groups, channels / groups, h, wd, sms, dtype == 1, true, true);
+  const int fields[] = {t.nco, t.th, t.tw, t.wk, t.mt, t.rw, t.plane, t.pco, t.smem_bytes};
+  for (int i = 0; i < 9; ++i) out[i] = fields[i];
   return cudaSuccess;
 }

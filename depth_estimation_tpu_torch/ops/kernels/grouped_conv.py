@@ -56,8 +56,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.grouped_conv3x3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.grouped_conv3x3.restype = ctypes.c_int
-    lib.grouped_conv3x3_f32_tiling.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
-    lib.grouped_conv3x3_f32_tiling.restype = ctypes.c_int
+    lib.grouped_conv3x3_tiling.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.grouped_conv3x3_tiling.restype = ctypes.c_int
     return lib
 
 
@@ -94,16 +94,20 @@ def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch
 
 grouped_conv3x3.launches = 0
 
-_TILING_FIELDS = ("nco", "th", "tw", "wk", "mt", "plane", "pco", "smem_bytes")
+_TILING_FIELDS = ("nco", "th", "tw", "wk", "mt", "rw", "plane", "pco", "smem_bytes")
 
 
-def f32_tiling(x_shape, groups: int, sms: int) -> dict:
-    """The tiling the f32 kernel picks for an input of ``x_shape`` on a card
-    with ``sms`` SMs: output channels a block (nco), rows and columns a block
-    (th, tw), warp slices over the input channels (wk), m16 pixel tiles a
-    warp (mt), the staged input plane and weight row pitches in words
-    (plane, pco) and the shared memory a block. Builds the kernel's library, so it needs nvcc."""
+def tiling(x_shape, groups: int, sms: int, dtype: torch.dtype) -> dict:
+    """The tiling the kernel's ``dtype`` route picks for an input of
+    ``x_shape`` on a card with ``sms`` SMs: output channels a block (nco),
+    rows and columns a block (th, tw), warp slices over the input channels
+    (wk), m16 pixel tiles a warp (mt), the staged input row and plane and
+    weight row pitches in values of ``dtype`` (rw, plane, pco) and the shared
+    memory a block. Builds the kernel's library, so it needs nvcc."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"no grouped conv route for {dtype}")
     b, c, h, w = x_shape
     out = (ctypes.c_int * len(_TILING_FIELDS))()
-    build.check(_lib().grouped_conv3x3_f32_tiling(b, c, h, w, groups, sms, out), "grouped conv tiling")
+    err = _lib().grouped_conv3x3_tiling(b, c, h, w, groups, _DTYPES[dtype], sms, out)
+    build.check(err, "grouped conv tiling")
     return dict(zip(_TILING_FIELDS, out))

@@ -164,8 +164,11 @@ def test_grouped_conv_kernel_odd_small_shape(cuda, gen, dtype, tol):
     torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, 4).float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("b,c,h,w,g", [(1, 96, 12, 16, 8), (2, 96, 5, 7, 8), (1, 64, 9, 11, 8), (1, 40, 3, 5, 2)],
-                         ids=["cg12", "cg12_5x7", "hw99", "cg20_3x5"])
+_RAGGED = [(1, 96, 12, 16, 8), (2, 96, 5, 7, 8), (1, 64, 9, 11, 8), (1, 40, 3, 5, 2)]
+_RAGGED_IDS = ["cg12", "cg12_5x7", "hw99", "cg20_3x5"]
+
+
+@pytest.mark.parametrize("b,c,h,w,g", _RAGGED, ids=_RAGGED_IDS)
 def test_grouped_conv_f32_kernel_ragged(cuda, gen, b, c, h, w, g):
     """The f32 route with C/G not a multiple of 8 (12, 20: k and n padded
     with zeros in shared memory) and H·W not a multiple of 16 (35, 99, 15:
@@ -173,6 +176,25 @@ def test_grouped_conv_f32_kernel_ragged(cuda, gen, b, c, h, w, g):
     x, k = _grouped_inputs(gen, b, c, h, w, g, torch.float32, cuda)
     got = tgc.grouped_conv3x3(x, k, g)
     torch.testing.assert_close(got, tgc.grouped_conv3x3_plain(x, k, g), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,c,h,w,g,offset",
+                         [(*shape, 0) for shape in _RAGGED] + [(1, 256, 8, 16, 32, 1), (1, 256, 6, 128, 32, 0)],
+                         ids=_RAGGED_IDS + ["offset_pointer", "w128"])
+def test_grouped_conv_bf16_kernel_ragged(cuda, gen, b, c, h, w, g, offset):
+    """The bf16 route where the 16-byte staging does not apply, so every
+    value is an ordinary load: C/G 12 and 20 (weight rows not multiples of
+    8 values), W = 7, 11, 5 (rows not 16-byte aligned), and an x pointer one
+    value past a 16-byte boundary at an otherwise aligned shape; H·W 35, 99
+    and 15 leave pixel rows past the map. And W = 128, aligned, in two
+    column tiles, so the halo pairs between them lie in the image."""
+    x, k = _grouped_inputs(gen, b, c, h, w, g, torch.bfloat16, cuda)
+    if offset:
+        flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=cuda)
+        flat[offset:].copy_(x.reshape(-1))
+        x = flat[offset:].view(x.shape)
+    got = tgc.grouped_conv3x3(x, k, g)
+    torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, g).float(), atol=1e-2, rtol=1e-2)
 
 
 def test_grouped_conv_f32_kernel_large_inputs(cuda, gen):
@@ -189,15 +211,51 @@ def test_grouped_conv_f32_kernel_large_inputs(cuda, gen):
     assert got_err <= 1e-5 * exact.abs().max().item()
 
 
+def test_grouped_conv_bf16_kernel_large_inputs(cuda, gen):
+    """Layer 4 in bf16 with inputs ×30 (outputs up to about 100), against a
+    float64 convolution of the same bf16 values on the CPU: within one
+    rounding to bf16 of the exact result (2^-8 of it) plus 1e-4 of the
+    outputs' range for the f32 sums; the plain version's distance is printed
+    beside it."""
+    x, k = _grouped_inputs(gen, 1, 2048, 6, 8, 32, torch.bfloat16, cuda)
+    x = x * 30
+    exact = torch.nn.functional.conv2d(x.cpu().double(), k.cpu().double(), padding=1, groups=32)
+    got = tgc.grouped_conv3x3(x, k, 32).cpu().double()
+    got_err = (got - exact).abs().max().item()
+    plain_err = (tgc.grouped_conv3x3_plain(x, k, 32).cpu().double() - exact).abs().max().item()
+    scale = exact.abs().max().item()
+    print(f"bf16 x30 layer 4: kernel {got_err:.3g}, plain {plain_err:.3g}, max |y| {scale:.4g}")
+    torch.testing.assert_close(got, exact, rtol=2.0 ** -8, atol=1e-4 * scale)
+
+
+# the tilings that tests/test_torch_kernels.py's lane-mapping and bank tests
+# assume, at batch 1 on 132 SMs: (C, H, W) → (nco, th, tw, wk, mt)
+_MIDAS_TILINGS = {(256, 48, 64): (8, 4, 64, 1, 4), (512, 24, 32): (16, 4, 32, 1, 2),
+                  (1024, 12, 16): (16, 3, 16, 4, 3), (2048, 6, 8): (8, 6, 8, 4, 3)}
+
+
 def test_grouped_conv_f32_tilings_at_midas_shapes(cuda):
     """The tilings that tests/test_torch_kernels.py's lane-mapping and bank
     tests assume are the ones the kernel picks, at batch 1 on 132 SMs."""
-    want = {(256, 48, 64): (8, 4, 64, 1, 4), (512, 24, 32): (16, 4, 32, 1, 2),
-            (1024, 12, 16): (16, 3, 16, 4, 3), (2048, 6, 8): (8, 6, 8, 4, 3)}
-    for (c, h, w), tiling in want.items():
-        got = tgc.f32_tiling((1, c, h, w), 32, 132)
+    for (c, h, w), tiling in _MIDAS_TILINGS.items():
+        got = tgc.tiling((1, c, h, w), 32, 132, torch.float32)
         assert tuple(got[f] for f in ("nco", "th", "tw", "wk", "mt")) == tiling, (c, got)
-        assert got["plane"] % 16 == 8 and got["pco"] % 8 == 4
+        assert got["rw"] == got["tw"] + 8 and got["plane"] % 16 == 8 and got["pco"] % 8 == 4
+
+
+def test_grouped_conv_bf16_tilings_at_midas_shapes(cuda):
+    """The bf16 route takes the f32 route's tiling with its own pitches, in
+    bf16 values: rows of tw + 16 (the tile from element 8, a halo pair on
+    either side, 16-byte multiples), planes ≡ 8 (mod 32) and weight rows
+    ≡ 8 (mod 16), as tests/test_torch_kernels.py's bf16 lane-mapping and bank
+    tests assume; and less shared memory than the f32 route."""
+    for (c, h, w), tiling in _MIDAS_TILINGS.items():
+        got = tgc.tiling((1, c, h, w), 32, 132, torch.bfloat16)
+        f32 = tgc.tiling((1, c, h, w), 32, 132, torch.float32)
+        assert tuple(got[f] for f in ("nco", "th", "tw", "wk", "mt")) == tiling, (c, got)
+        assert got["rw"] == got["tw"] + 16 and got["plane"] % 32 == 8 and got["pco"] % 16 == 8, (c, got)
+        assert got["plane"] >= (got["th"] + 2) * got["rw"] and got["pco"] >= 72 * got["wk"]
+        assert got["smem_bytes"] < f32["smem_bytes"]
 
 
 def test_grouped_conv_kernel_counts_each_launch(cuda, gen):

@@ -463,9 +463,9 @@ def test_k4_one_pass_tf32_misses_the_tolerance(rng):
     assert (_k4_conv_tf32(x, k, 2, 4) - plain).abs().max() < 1e-5
 
 
-def _pad_to_octet(n):
-    """csrc/grouped_conv.cu's pad_to_octet: the least m ≥ n with m ≡ 8 (mod 16)."""
-    return n + (8 - n % 16) % 16
+def _pad_to(n, r, q):
+    """csrc/grouped_conv.cu's pad_to: the least m ≥ n with m ≡ r (mod q)."""
+    return n + (r - n % q) % q
 
 
 # pick_gemm_tiling's choice at the MiDaS conv2 shapes, batch 1, 132 SMs
@@ -481,7 +481,7 @@ def _k4_layout(th, tw, wk):
     pitch pco (one output channel's ck·9 values, as stored), channels a
     chunk ck, and the weights' offset."""
     rw, ck = tw + 8, 8 * wk
-    return rw, _pad_to_octet((th + 2) * rw), 9 * ck + 4, ck, ck * _pad_to_octet((th + 2) * rw)
+    return rw, _pad_to((th + 2) * rw, 8, 16), 9 * ck + 4, ck, ck * _pad_to((th + 2) * rw, 8, 16)
 
 
 def _k4_fragment_words(nco, th, tw, wk, mt_count, wm, ks, mt, tap):
@@ -593,3 +593,250 @@ def test_k4_breakdown_macros_are_in_the_source_and_keyed_apart():
         assert re.search(rf"^#ifn?def {macro}\b", src, re.M), macro
     paths = {build.library_path("grouped_conv")} | {build.library_path("grouped_conv", (m,)) for m in macros}
     assert len(paths) == 1 + len(macros)
+
+
+# K4's bf16 route (csrc/grouped_conv.cu): the f32 route's GEMM on
+# mma.sync.m16n8k16 .bf16, one k16 step = two taps × the slice's 8 input
+# channels (taps 2i, 2i + 1; the tenth tap's fragments are zero registers),
+# bf16 values staged in bf16 pitches, each 32-bit fragment register two
+# 16-bit shared reads, f32 sums rounded to bf16 once at the store.
+
+
+def _k4_conv_bf16(x, weight, groups, wk=1):
+    """The bf16 kernel's arithmetic on bf16 (B, C, H, W) and (C, C/G, 3, 3):
+    A the tap-major im2col with a zero tenth tap, B the weights as (G, 10,
+    ci, co); per slice s, each chunk's 8 channels of s in five k16 steps of
+    f32 products of bf16 values (exact) summed in f32 across all chunks, the
+    slices' sums added in order, one rounding to bf16."""
+    b, c, h, w = x.shape
+    cg = c // groups
+    a = F.unfold(x.float(), 3, padding=1).reshape(b, groups, cg, 9, h * w).permute(0, 1, 4, 3, 2)
+    a = F.pad(a, (0, 0, 0, 1))  # (B, G, P, 10 taps, ci)
+    bm = F.pad(weight.float().reshape(groups, cg, cg, 9).permute(0, 3, 2, 1), (0, 0, 0, 0, 0, 1))  # (G, 10, ci, co)
+    total = torch.zeros((b, groups, h * w, cg))
+    for s in range(wk):
+        run = torch.zeros_like(total)
+        for ci0 in range(0, cg, 8 * wk):
+            lo, hi = ci0 + 8 * s, min(ci0 + 8 * s + 8, cg)
+            for step in range(5 if lo < hi else 0):
+                taps = slice(2 * step, 2 * step + 2)
+                a_step = a[..., taps, lo:hi].reshape(b, groups, h * w, -1)
+                run = run + a_step @ bm[:, taps, lo:hi].reshape(groups, -1, cg)
+        total = total + run
+    return total.permute(0, 1, 3, 2).reshape(b, c, h, w).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cg,groups,h,w,wk", [(8, 4, 9, 11, 1), (16, 2, 7, 8, 1), (32, 2, 6, 5, 4),
+                                              (64, 2, 5, 7, 4), (64, 2, 6, 8, 2), (2, 4, 5, 7, 1),
+                                              (16, 2, 6, 8, 2)])
+def test_k4_bf16_implicit_gemm_holds_pallas_and_plain(rng, cg, groups, h, w, wk):
+    """C/G = 8, 16, 32, 64 and 2 at odd and even H, W, with wk = 1, 2, 4:
+    the bf16 kernel's arithmetic within the bf16 tolerance 1e-2 of the
+    Pallas kernel (interpret mode, bf16 at precision "default") and of
+    grouped_conv3x3_plain, both in bf16."""
+    import jax.numpy as jnp
+
+    x, k = (torch.from_numpy(a).to(torch.bfloat16) for a in _k4_grouped_inputs(rng, cg * groups, cg, h, w))
+    got = _k4_conv_bf16(x, k, groups, wk)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), tgc.grouped_conv3x3_plain(x, k, groups).float(), atol=1e-2, rtol=1e-2)
+    jx = jnp.asarray(x.float().permute(0, 2, 3, 1).numpy(), jnp.bfloat16)
+    jk = jnp.asarray(k.float().permute(2, 3, 1, 0).numpy(), jnp.bfloat16)
+    pallas = np.asarray(grouped_conv3x3_pallas(jx, jk, groups, interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().permute(0, 2, 3, 1).numpy(), pallas, atol=1e-2, rtol=1e-2)
+
+
+def _k4_bf16_layout(th, tw, wk):
+    """The bf16 route's pitches in bf16 values, as pick_gemm_tiling sets
+    them: input row pitch rw (the tile from element 8, halo pairs at 6 and
+    tw + 8, a multiple of 8), plane pitch ≡ 8 (mod 32), weight row pitch pco
+    ≡ 8 (mod 16), channels a chunk ck, and the weights' offset."""
+    rw, ck = -(-(tw + 10) // 8) * 8, 8 * wk
+    plane = _pad_to((th + 2) * rw, 8, 32)
+    return rw, plane, _pad_to(9 * ck, 8, 16), ck, ck * plane
+
+
+def _k4_bf16_stage(x, weight, cg, nco, th, tw, wk, r0, c0, co0, ci0, aligned):
+    """One chunk's buffer as the bf16 kernel's stage_chunk fills it, copy by
+    copy, NaN where no copy writes; x (C/G, H, W), weight (C/G, C/G, 3, 3) of
+    one group. Aligned: a staged row in 16-byte copies of 8 values from
+    element 8 and a 4-byte halo pair on either side, weight rows in 16-byte
+    copies; otherwise one value a copy, columns -1 .. tw. Also returns the
+    copies as (first element, values, source element or None)."""
+    h, w = x.shape[-2:]
+    rw, plane, pco, ck, w_base = _k4_bf16_layout(th, tw, wk)
+    buf = torch.full((w_base + nco * pco,), float("nan"), dtype=x.dtype)
+    xf, wf = x.reshape(-1), weight.reshape(cg, cg * 9)
+    copies = []
+    xv = 8 if aligned else 1
+    for ci in range(ck):
+        for rr in range(th + 2):
+            for cc in range(2 + tw // xv):
+                c, row = ci0 + ci, r0 - 1 + rr
+                row_live = c < cg and 0 <= row < h
+                if not aligned:
+                    col, n = cc - 1, 1
+                elif cc >= 2:
+                    col, n = 8 * (cc - 2), 8
+                else:
+                    col, n = (-2 if cc == 0 else tw), 2
+                live = row_live and 0 <= c0 + col < w
+                dst, src = ci * plane + rr * rw + 8 + col, c * h * w + row * w + c0 + col
+                buf[dst:dst + n] = xf[src:src + n] if live else 0
+                copies.append((dst, n, src if live else None))
+    wv = 8 if aligned else 1
+    for co in range(nco):
+        for j in range(9 * ck // wv):
+            f0 = ci0 * 9 + wv * j
+            valid = min(max(cg * 9 - f0, 0), wv) if co0 + co < cg else 0
+            dst = w_base + co * pco + wv * j
+            buf[dst:dst + wv] = 0
+            if valid:
+                buf[dst:dst + valid] = wf[co0 + co, f0:f0 + valid]
+            copies.append((dst, wv, (co0 + co) * cg * 9 + f0 if valid else None))
+    return buf, copies
+
+
+def _k4_bf16_fragment_elems(nco, th, tw, wk, mt_count, wm, ks, mt, step):
+    """The bf16 kernel's element addresses in a buffer for k16 step `step`
+    (taps 2·step and 2·step + 1) of slice ks, m16 tile mt of warp wm: A's
+    a0..a7 (32 lanes, 8), per n8 tile B's b0..b3 (nco / 8, 32, 4), -1 for
+    the zero tap's registers (no read); and the tile's pixel indices (32, 2)."""
+    rw, plane, pco, ck, w_base = _k4_bf16_layout(th, tw, wk)
+    p = (wm * mt_count + mt) * 16 + _G[:, None] + 8 * torch.arange(2)
+    a_off = torch.where(p < th * tw, p // tw * rw + p % tw + 7, 0)  # once per lane, before the k loop
+    xs = (8 * ks + 2 * _T) * plane  # channel 2t of the slice; 2t + 1 is a plane on
+    ws = w_base + _G * pco + (8 * ks + 2 * _T) * 9
+    a, b = [], [[] for _ in range(nco // 8)]
+    for tap in (2 * step, 2 * step + 1):
+        off = tap // 3 * rw + tap % 3
+        for hh in range(2):  # a0a1 / a4a5: pixel g; a2a3 / a6a7: pixel g + 8
+            e = xs + a_off[:, hh] + off
+            a += [e, e + plane] if tap < 9 else [torch.full((32,), -1)] * 2
+        for nt in range(nco // 8):
+            e = ws + 8 * nt * pco + tap
+            b[nt] += [e, e + 9] if tap < 9 else [torch.full((32,), -1)] * 2
+    return torch.stack(a, 1), torch.stack([torch.stack(r, 1) for r in b]), p
+
+
+def _gather(buf, idx):
+    return torch.where(idx >= 0, buf[idx.clamp(min=0)], torch.zeros((), dtype=buf.dtype))
+
+
+@pytest.mark.parametrize("nco,th,tw,wk,mt_count,h,w,cg,aligned", [
+    (8, 6, 8, 4, 3, 6, 8, 64, True),      # layer 4: W = 8, so each m16 tile spans two image rows
+    (16, 3, 16, 4, 3, 12, 16, 32, True),  # layer 3's tile, one of four row tiles
+    (8, 4, 64, 1, 4, 9, 64, 8, True),     # layer 1's tile, the last row tile reaching past the image
+    (8, 2, 7, 1, 1, 5, 7, 5, False),      # ragged: 14 pixels a tile, C/G = 5, one value a copy
+], ids=["layer4", "layer3", "layer1", "ragged"])
+def test_k4_bf16_lane_mapping_rebuilds_one_warps_tile(rng, nco, th, tw, wk, mt_count, h, w, cg, aligned):
+    """Each warp's m16 × n8 tiles from the bf16 kernel's fragment addresses
+    (two 16-bit reads packed a register, the zero tap as zero registers) on
+    the buffer its copies stage, through one warp's m16n8k16 on per-lane
+    fragments: every live pixel row and channel equals the convolution of
+    that slice's 8 input channels, exactly; nothing unstaged is read."""
+    x = torch.from_numpy(rng.standard_normal((cg, h, w)))
+    weight = torch.from_numpy(rng.standard_normal((cg, cg, 3, 3)))
+    r0, c0 = (h - 1) // th * th, 0  # the last row tile, which may reach past the image
+    for ci0 in range(0, cg, 8 * wk):
+        buf, _ = _k4_bf16_stage(x, weight, cg, nco, th, tw, wk, r0, c0, 0, ci0, aligned)
+        for ks in range(wk):
+            lo, hi = ci0 + 8 * ks, min(ci0 + 8 * ks + 8, cg)
+            if lo >= hi:
+                continue
+            ref = F.conv2d(x[None, lo:hi], weight[:nco, lo:hi], padding=1)[0]  # (co, H, W)
+            for wm in range(4 // wk):
+                for mt in range(mt_count):
+                    c = torch.zeros((nco // 8, 32, 4), dtype=torch.float64)
+                    for step in range(5):
+                        a, b, p = _k4_bf16_fragment_elems(nco, th, tw, wk, mt_count, wm, ks, mt, step)
+                        assert not _gather(buf, b).isnan().any()
+                        for nt in range(nco // 8):
+                            c[nt] = _mma_m16n8k16(_gather(buf, a), _gather(buf, b[nt]), c[nt])
+                    for nt in range(nco // 8):
+                        for hh in range(2):
+                            pix = p[:, hh]
+                            row, col = r0 + pix // tw, c0 + pix % tw
+                            live = (pix < th * tw) & (row < h)
+                            for e in range(2):
+                                co = 8 * nt + 2 * _T + e
+                                live_c = live & (co < cg)
+                                want = ref[co[live_c], row[live_c], col[live_c]]
+                                torch.testing.assert_close(c[nt][live_c, 2 * hh + e], want, rtol=1e-12, atol=1e-12)
+    # the layer-4 tile's m16 tile 1 holds pixels 16..31: image rows 2 and 3
+    assert torch.equal(_k4_bf16_fragment_elems(8, 6, 8, 4, 3, 0, 0, 1, 0)[2][:, 0] // 8, torch.full((32,), 2))
+
+
+@pytest.mark.parametrize("shape", list(_K4_TILINGS), ids=["layer1", "layer2", "layer3", "layer4"])
+def test_k4_bf16_fragment_reads_without_bank_conflicts(shape):
+    """Every 16-bit shared read of an A or B fragment half, at the kernel's
+    tiling of each MiDaS shape, touches each bank in at most one word (lanes
+    that read the two halves of one word share it): the plane pitch ≡ 8
+    (mod 32) values puts the planes of channels 2t 8 words apart for t =
+    0..3, with the at most 5 words of 8 neighbouring pixels between them;
+    the weight row pitch ≡ 8 (mod 16) values puts output channels g on the
+    multiples of 4 words and t (18 values = 9 words on) on the residues mod 4."""
+    nco, th, tw, wk, mt_count = _K4_TILINGS[shape]
+
+    def conflict_free(elems):
+        words = (elems // 2).tolist()
+        banks = {}
+        for word in words:
+            banks.setdefault(word % 32, set()).add(word)
+        return all(len(ws) == 1 for ws in banks.values())
+
+    for ks in range(wk):
+        for wm in range(4 // wk):
+            for mt in range(mt_count):
+                for step in range(5):
+                    a, b, _ = _k4_bf16_fragment_elems(nco, th, tw, wk, mt_count, wm, ks, mt, step)
+                    for elems in [*a.T, *b.reshape(-1, 32, 4).permute(0, 2, 1).reshape(-1, 32)]:
+                        assert (elems < 0).all() or conflict_free(elems)
+    # without the padding a plane of 480 values (layer 1) puts the four t on one bank octet,
+    # and weight rows of 144 values (wk = 2) output channels g and g + 4 on one bank
+    assert not conflict_free(2 * _T * 480 + _G)
+    assert not conflict_free(_G * 144 + 18 * _T)
+
+
+@pytest.mark.parametrize("shape", list(_K4_TILINGS), ids=["layer1", "layer2", "layer3", "layer4"])
+def test_k4_bf16_halo_pairs_land_the_staged_row(rng, shape):
+    """The aligned staging at each MiDaS tiling, first and last row tile,
+    every chunk, and a second column tile of an input twice as wide (whose
+    leading halo pair lies in the image): the 16-byte copies of 8 values and
+    the 4-byte halo pairs are aligned at both ends (16 and 4 bytes in shared
+    memory and in a 16-byte aligned tensor), write disjoint values, and land
+    the padded input's columns c0 − 1 .. c0 + tw at elements 7 .. tw + 8 of
+    each staged row, where the fragment offsets read them (zeros outside the
+    image), and each weight (co, ci, tap) at co·pco + ci·9 + tap; the
+    one-value staging of unaligned rows lands the same values there."""
+    c, h, w = shape
+    nco, th, tw, wk, _ = _K4_TILINGS[shape]
+    cg = c // 32
+    weight = torch.from_numpy(rng.standard_normal((cg, cg, 3, 3)))
+    for width, c0 in ((w, 0), (2 * w, w)):
+        x = torch.from_numpy(rng.standard_normal((cg, h, width)))
+        xp = F.pad(x, (1, 1 + tw, 1, 1 + th))
+        _k4_bf16_check_staging(x, xp, weight, cg, nco, th, tw, wk, c0, h)
+
+
+def _k4_bf16_check_staging(x, xp, weight, cg, nco, th, tw, wk, c0, h):
+    rw, plane, pco, ck, w_base = _k4_bf16_layout(th, tw, wk)
+    for r0 in sorted({0, (h - 1) // th * th}):
+        for ci0 in range(0, cg, ck):
+            buf, copies = _k4_bf16_stage(x, weight, cg, nco, th, tw, wk, r0, c0, 0, ci0, True)
+            written = torch.zeros(buf.shape, dtype=torch.int64)
+            for dst, n, src in copies:
+                assert n in (2, 8) and (2 * dst) % (2 * n) == 0 and (src is None or src % n == 0)
+                written[dst:dst + n] += 1
+            assert written.max() == 1
+            plain, _ = _k4_bf16_stage(x, weight, cg, nco, th, tw, wk, r0, c0, 0, ci0, False)
+            for ci in range(ck):
+                for rr in range(th + 2):
+                    row = buf[ci * plane + rr * rw + 7:ci * plane + rr * rw + tw + 9]
+                    want = (xp[ci0 + ci, r0 + rr, c0:c0 + tw + 2] if ci0 + ci < cg
+                            else torch.zeros(tw + 2, dtype=x.dtype))
+                    torch.testing.assert_close(row, want, rtol=0, atol=0)
+                    torch.testing.assert_close(plain[ci * plane + rr * rw + 7:ci * plane + rr * rw + tw + 9], want,
+                                               rtol=0, atol=0)
+            staged_w = buf[w_base:].reshape(nco, pco)[:, :9 * ck].reshape(nco, ck, 9)
+            torch.testing.assert_close(staged_w, weight[:nco, ci0:ci0 + ck].reshape(nco, ck, 9), rtol=0, atol=0)
