@@ -23,6 +23,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it) and in bf16
    (bf16 mma on the tensor cores; bound at the bf16 rate), each with its
    tiling printed, at batch 1, and checked in both at batch 4, the microbatch;
+   K2 (preprocess) and K3 (resize) are checked and timed at both families'
+   shapes (480×640 u8 → 384×512 or 192×256, and back to 480×640), each with
+   its tiling printed, at batch 1, and checked at batch 4; K3 also on its u8
+   route (the stream's wrap-around cast fused in) against ``wraparound_u8``
+   of the plain version, bytes differing only where the f32 map lies within
+   1e-3 of an integer, timed beside K3 f32 followed by ``wraparound_u8``;
 4. stream  — ``DepthEstimator("DPT_Large")`` (full width, random weights from
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
    .avi, per frame and with ``microbatch=4``, each after one untimed batch
@@ -31,9 +37,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. hold    — the same weights on a ``device="cpu"`` estimator (plain paths) on
    a 240×320 frame: max |gpu - cpu| / max |cpu| < 1e-3, the package's
    accuracy gate (BASELINE.md:23);
-6. profile — one 480×640 frame program at a time: host-clock ms per program,
-   then torch.profiler's device busy time per program, K1's and K4's device
-   ms and calls per program, and the largest kernels;
+6. profile — one 480×640 u8 frame program at a time: host-clock ms per
+   program, then torch.profiler's device busy time, device kernels, K1's and
+   K4's device ms and calls per program, and the largest kernels;
 7. bf16    — the opt-in bfloat16 mode on the same weights: finite, within 5%
    of the f32 map's range, its host-clock ms per frame and its K1 launches
    (asserted: 24 a frame, all on the bf16 route); then bf16_profile, phase 6
@@ -48,7 +54,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    midas_bf16_profile gives the bf16 frame's busy time, idle share and K4 sum.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
-path's per-frame stream), the ``nvidia-smi`` line, and last
+path's per-frame stream; K2's and K3's for each family under ``per_shape``),
+the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
 phase. It imports nothing of JAX or of the JAX package.
 """
@@ -104,6 +111,10 @@ def time_ms(fn, reps=25, inner=10):
     return statistics.median(times)
 
 
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def bound_ms(nbytes, flops, peak=PEAK_FLOPS[torch.float32]):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -144,14 +155,15 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
 
 
 def check_preprocess(frames, net_hw, cfg, timed):
-    from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, preprocess_plain
+    from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, preprocess_plain, tiling
 
     got = fused_preprocess(frames, net_hw, cfg.mean, cfg.std)
     ref = preprocess_plain(frames, net_hw, cfg.mean, cfg.std)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
-    check(got.shape == ref.shape and err <= 3e-5, f"preprocess: max abs err {err} over 3e-5")
-    row = {"in": list(frames.shape), "out": list(got.shape), "max_abs_err": err, "atol": 3e-5}
+    check(got.shape == ref.shape and err <= 3e-5, f"preprocess {tuple(got.shape)}: max abs err {err} over 3e-5")
+    row = {"in": list(frames.shape), "out": list(got.shape), "max_abs_err": err, "atol": 3e-5,
+           "tiling": tiling(tuple(frames.shape[1:3]), tuple(net_hw), frames.shape[0], sm_count(), "preprocess")}
     if timed:
         h_out, w_out = net_hw
         nbytes = frames.numel() + got.numel() * 4 + (h_out + w_out) * 4 * 8  # frame, output, tap tables
@@ -163,21 +175,41 @@ def check_preprocess(frames, net_hw, cfg, timed):
     return row
 
 
-def check_resize(gen, in_hw, out_hw):
-    from depth_estimation_tpu_torch.ops.kernels.resize import resize_planes, resize_planes_plain
+def check_resize(gen, in_hw, out_hw, batch=1, timed=True):
+    """K3's f32 route on values in [0, 1) within 3e-5 of the plain version;
+    its u8 route on depth-like values from -50 to 550 against
+    ``wraparound_u8`` of the plain version, bytes differing only where the
+    f32 map lies within 1e-3 of an integer."""
+    from depth_estimation_tpu_torch.ops.kernels.resize import resize_planes, resize_planes_plain, tiling
+    from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
 
-    x = torch.rand((1, *in_hw), generator=gen, device="cuda")
+    x = torch.rand((batch, *in_hw), generator=gen, device="cuda")
     got, ref = resize_planes(x, out_hw), resize_planes_plain(x, out_hw)
-    lib = lambda: F.interpolate(x[None], size=out_hw, mode="bicubic", align_corners=False)  # noqa: E731
+    depth = x * 600 - 50
+    got8, f32 = resize_planes(depth, out_hw, output="u8"), resize_planes_plain(depth, out_hw)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
-    check(err <= 3e-5, f"resize: max abs err {err} over 3e-5")
-    bnd, by = bound_ms(x.numel() * 4 + got.numel() * 4 + sum(out_hw) * 4 * 8, got.numel() * 2 * 16)
+    check(err <= 3e-5, f"resize {tuple(got.shape)}: max abs err {err} over 3e-5")
+    differ = got8 != wraparound_u8(f32)
+    away = int((differ & ((f32 - f32.round()).abs() >= 1e-3)).sum())
+    check(got8.dtype == torch.uint8 and away == 0,
+          f"resize u8 {tuple(got8.shape)}: {away} bytes differ away from an integer")
     row = {"in": list(x.shape), "out": list(got.shape), "max_abs_err": err, "atol": 3e-5,
-           "library_max_abs_diff": (lib()[0] - ref).abs().max().item(),
-           "ms": time_ms(lambda: resize_planes(x, out_hw)),
-           "plain_ms": time_ms(lambda: resize_planes_plain(x, out_hw)),
-           "library_ms": time_ms(lib), "bound_ms": bnd, "bound_by": by}
+           "u8_bytes_differ": int(differ.sum()), "u8_bytes_differ_away_from_integer": away,
+           "tiling": tiling(tuple(in_hw), tuple(out_hw), batch, sm_count(), "resize")}
+    if timed:
+        taps = sum(out_hw) * 4 * 8
+        lib = lambda: F.interpolate(x[:, None], size=out_hw, mode="bicubic", align_corners=False)  # noqa: E731
+        bnd, by = bound_ms(x.numel() * 4 + got.numel() * 4 + taps, got.numel() * 2 * 16)
+        bnd8, by8 = bound_ms(x.numel() * 4 + got.numel() + taps, got.numel() * (2 * 16 + 1))
+        row.update(library_max_abs_diff=(lib()[:, 0] - ref).abs().max().item(),
+                   ms=time_ms(lambda: resize_planes(x, out_hw)),
+                   plain_ms=time_ms(lambda: resize_planes_plain(x, out_hw)),
+                   library_ms=time_ms(lib), bound_ms=bnd, bound_by=by,
+                   u8_ms=time_ms(lambda: resize_planes(depth, out_hw, output="u8")),
+                   u8_plain_ms=time_ms(lambda: resize_planes_plain(depth, out_hw, output="u8")),
+                   u8_unfused_ms=time_ms(lambda: wraparound_u8(resize_planes(depth, out_hw))),
+                   u8_library_ms=None, u8_bound_ms=bnd8, u8_bound_by=by8)
     emit("kernel", name="resize", **row)
     return row
 
@@ -201,7 +233,7 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
     lib = lambda: F.conv2d(x, k, padding=1, groups=groups)  # noqa: E731
     row = {"layer": layer, "shape": [batch, c, h, w], "groups": groups, "dtype": str(dtype), "max_abs_err": err,
            "atol": tol, "rtol": tol, "library_max_abs_diff": (lib().float() - ref.float()).abs().max().item(),
-           "tiling": tiling(x.shape, groups, torch.cuda.get_device_properties(0).multi_processor_count, dtype)}
+           "tiling": tiling(x.shape, groups, sm_count(), dtype)}
     if timed:
         nbytes = (2 * x.numel() + k.numel()) * (torch.finfo(dtype).bits // 8)
         flops = 2 * batch * h * w * c * cg * 9
@@ -249,6 +281,8 @@ def run_stream(est, out_path, microbatch, per_program, phase="stream", **extra):
 K1_KERNELS = ("attention_f32_kernel", "attention_bf16_kernel")
 K4_KERNELS = ("grouped_conv3x3_tf32_kernel", "grouped_conv3x3_bf16_kernel")  # one entry per template instance
 K4_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+K23_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "tiling")
+K3_U8_KEYS = ("u8_ms", "u8_plain_ms", "u8_unfused_ms", "u8_library_ms", "u8_bound_ms", "u8_bytes_differ")
 
 
 def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
@@ -275,6 +309,7 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
     busy_ms = sum(r[1] for r in rows) / n / 1e3
     k1 = [r for r in rows if any(name in r[0] for name in K1_KERNELS)]
     k4 = [r for r in rows if any(name in r[0] for name in K4_KERNELS)]
+    kernels_run = sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n
     most = max(rows, key=lambda r: r[2])
     if max_calls is not None:
         check(most[2] / n <= max_calls,
@@ -284,6 +319,7 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
          device_idle_share=max(0.0, 1 - busy_ms / program_ms),
          k1_ms_per_program=sum(r[1] for r in k1) / n / 1e3, k1_calls_per_program=sum(r[2] for r in k1) / n,
          k4_ms_per_program=sum(r[1] for r in k4) / n / 1e3, k4_calls_per_program=sum(r[2] for r in k4) / n,
+         device_kernels_per_program=kernels_run,
          most_calls={"kernel": most[0][:100], "calls_per_program": most[2] / n},
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
@@ -368,6 +404,9 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     net_hw = compute_resize_shape(480, 640, DPT_PREPROCESS)
     check(net_hw == (384, 512), f"network input {net_hw}")
+    midas_hw = compute_resize_shape(480, 640, SMALL_PREPROCESS)
+    check(midas_hw == (192, 256), f"MiDaS network input {midas_hw}")
+    resize_shapes = {"dpt_384x512": (net_hw, DPT_PREPROCESS), "midas_192x256": (midas_hw, SMALL_PREPROCESS)}
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.integers(0, 256, (MICROBATCH, 480, 640, 3), np.uint8)).cuda()
     with full_f32():
@@ -378,9 +417,12 @@ def main():
         att16 = check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=True)
         check_attention(gen, 1, 16, 577, torch.bfloat16, 1e-2, 1e-2, timed=False)
         check_attention(gen, MICROBATCH, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
-        pre = check_preprocess(frames[:1], net_hw, DPT_PREPROCESS, timed=True)
-        check_preprocess(frames, net_hw, DPT_PREPROCESS, timed=False)
-        rsz = check_resize(gen, net_hw, (480, 640))
+        # K2 and K3 at both families' shapes: timed at batch 1, checked at the microbatch
+        pre = {key: check_preprocess(frames[:1], hw, cfg, timed=True) for key, (hw, cfg) in resize_shapes.items()}
+        rsz = {key: check_resize(gen, hw, (480, 640)) for key, (hw, _) in resize_shapes.items()}
+        for hw, cfg in resize_shapes.values():
+            check_preprocess(frames, hw, cfg, timed=False)
+            check_resize(gen, hw, (480, 640), batch=MICROBATCH, timed=False)
         # K4 is timed at every conv2 shape in both types; the table's row is layer 3, with 22 of its 30
         # launches a frame
         gconv = {layer: check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=True)
@@ -403,7 +445,6 @@ def main():
     profile_frames(bf16_mode(est, frame, 0.05, dpt_per_program), frame, "bf16_profile")
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
-    check(compute_resize_shape(480, 640, SMALL_PREPROCESS) == (192, 256), "MiDaS network input")
     midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
                          "grouped_conv3x3": 30}
     with tempfile.TemporaryDirectory() as tmp:
@@ -415,6 +456,8 @@ def main():
     profile_frames(midas, frame, "midas_profile")
     profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, max_calls=2000)
     profile_frames(bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16"), frame, "midas_bf16_profile")
+
+    path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
 
     def entry(name, source, replaces, row, path_launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -429,9 +472,14 @@ def main():
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
               bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"]),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:44", pre, launches),
+              "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches,
+              per_shape={key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
+                         for key in resize_shapes}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz, launches),
+              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches,
+              **{k: rsz["dpt_384x512"][k] for k in K3_U8_KEYS},
+              per_shape={key: {"launches": path[key]["resize_planes"],
+                               **{k: rsz[key][k] for k in K23_KEYS + K3_U8_KEYS}} for key in resize_shapes}),
         entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
               "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches,
               bound_peak=gconv["layer3"]["bound_peak"], fma_bound_ms=gconv["layer3"]["fma_bound_ms"],

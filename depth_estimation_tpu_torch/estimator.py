@@ -30,7 +30,6 @@ from torch import nn
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32, resolve_device
 from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
-from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.registry import get_entry
 from depth_estimation_tpu_torch.utils.debug import check_depth_output, check_frame_input
@@ -125,15 +124,15 @@ class DepthEstimator:
     def _run(self, imgs: torch.Tensor, output: str = "f32") -> torch.Tensor:
         """u8 BGR (B, H, W, 3) on the device → (B, H, W) float32 depth, or
         with output='u8' the reference's wrap-around uint8 cast of it
-        (depth_midas.py:83), so the stream fetches a quarter of the bytes."""
+        (depth_midas.py:83), cast by K3 itself, so the stream fetches a quarter
+        of the bytes."""
         in_hw = (int(imgs.shape[1]), int(imgs.shape[2]))
         cfg = self.preprocess_cfg
         net_hw = compute_resize_shape(*in_hw, cfg)
         with torch.inference_mode(), self._numerics():
             x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=True)
             pred = self.model(x.to(self.dtype)).float()  # (B, h, w)
-            out = resize_planes(pred, in_hw, "cubic", align_corners=False)
-            return wraparound_u8(out) if output == "u8" else out
+            return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
 
     # -- public API -----------------------------------------------------------
 

@@ -89,6 +89,14 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name, defines)))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
     if err != 0:

@@ -61,11 +61,6 @@ def _lib():
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
     """``grouped_conv3x3_plain`` for a CPU tensor; one K4 launch for a CUDA
     tensor. The kernel takes contiguous f32 or bf16 x and weight of one
@@ -86,7 +81,7 @@ def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch
     with torch.cuda.device(x.device):
         err = _lib().grouped_conv3x3(
             x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, c, h, w, groups,
-            _DTYPES[x.dtype], _sm_count(x.device.index), torch.cuda.current_stream().cuda_stream)
+            _DTYPES[x.dtype], build.sm_count(x.device.index), torch.cuda.current_stream().cuda_stream)
     build.check(err, "grouped conv kernel launch")
     grouped_conv3x3.launches += 1
     return out

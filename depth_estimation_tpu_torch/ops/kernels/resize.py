@@ -2,20 +2,28 @@
 
 Replace ``depth_estimation_tpu/ops/pallas/resize.py::_preprocess_kernel``
 (:44, via ``pallas_preprocess``) and ``::_resize_kernel`` (:102, via
-``pallas_resize2d``). The kernels are two entry points of
-``csrc/resize.cu``, whose source note gives the bound (memory) and the
-design.
+``pallas_resize2d``). The kernels are entry points of one template in
+``csrc/resize.cu``, whose source note gives the bound (bytes) and the design:
+a block per output tile, the tile's input window staged in shared memory by
+16-byte copies, a vertical then a horizontal 4-tap pass, the epilogue fused.
 
 The kernels read each interpolation matrix as a band table, ``band_taps``:
 for every output row, 4 (source index, weight) taps taken from the dense
 float32 ``interp_matrix``, so clipped border duplicates arrive already
 summed (``np.add.at`` in ``interp_matrix``) and the table densifies back to
 the matrix exactly. Linear resizes have 2 taps, padded with zero weights.
+Each row's indices are non-decreasing and lie between its first and last
+nonzero column, so a tile's input window is the least first index to the
+greatest last index over its rows.
+
+``tiling`` picks the output tile of a launch and the shared memory it needs;
+the kernel takes it as it is.
 
 ``preprocess_plain`` and ``resize_planes_plain`` are the plain PyTorch
 versions (the dense matmul form of the JAX package). ``fused_preprocess``
 and ``resize_planes`` take them for CPU tensors and launch the kernels for
-CUDA tensors.
+CUDA tensors. ``resize_planes(..., output="u8")`` fuses the reference's
+wrap-around uint8 cast (``ops.postprocess.wraparound_u8``) into K3.
 """
 
 from __future__ import annotations
@@ -28,26 +36,97 @@ import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.ops.kernels import build
+from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
 from depth_estimation_tpu_torch.ops.resize import interp_matrix, resize2d
 
 TAPS = 4
+THREADS = 256  # kThreads in csrc/resize.cu
+MIN_BLOCKS = 4  # kMinBlocks: __launch_bounds__'s blocks an SM
+TILE_WIDTHS = (32, 64, 128)  # output columns a block: 8, 16 or 32 threads make 4 each
+MAX_TILE_H = 32  # output rows a block: one warp loads their taps
+SMEM_BLOCK = 232_448  # bytes of shared memory a block may have on the H100 (227 KB)
+SMEM_SM = 233_472  # bytes an SM shares among its blocks (228 KB), 1 KB of them reserved a block
+# (channels, bytes a value) of each kernel's input
+_KERNELS = {"preprocess": (3, 1), "resize": (1, 4)}
+_OUTPUTS = {"f32": 0, "u8": 1}
 
 
 @functools.lru_cache(maxsize=64)
 def band_taps(in_size: int, out_size: int, method: str = "cubic",
               align_corners: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """``interp_matrix`` as (out_size, 4) int32 source indices and float32
-    weights: each row's nonzero columns in column order, then zero-weight pads."""
+    weights: each row's nonzero columns in column order, then zero-weight
+    pads at the row's last nonzero column."""
     w = interp_matrix(in_size, out_size, method, align_corners)
     if in_size < TAPS:
         w = np.pad(w, ((0, 0), (0, TAPS - in_size)))
     nonzero = w != 0
-    if nonzero.sum(axis=1).max() > TAPS:
+    count = nonzero.sum(axis=1)
+    if count.max() > TAPS:
         raise ValueError(f"{method} resize {in_size}->{out_size} has more than {TAPS} taps per row")
     order = np.argsort(~nonzero, axis=1, kind="stable")[:, :TAPS]
     weights = np.take_along_axis(w, order, axis=1).astype(np.float32)
-    idx = np.minimum(order, in_size - 1).astype(np.int32)
+    last = np.where(nonzero, np.arange(w.shape[1]), 0).max(axis=1)
+    idx = np.where(np.arange(TAPS) < count[:, None], order, last[:, None]).astype(np.int32)
     return idx, weights
+
+
+def _tile_windows(idx: np.ndarray, tile: int) -> Tuple[np.ndarray, np.ndarray]:
+    """For each run of ``tile`` consecutive output rows of a band table, the
+    first and last input index it reads (the kernel's warp-0 min and max)."""
+    starts = np.arange(0, len(idx), tile)
+    return np.minimum.reduceat(idx[:, 0], starts), np.maximum.reduceat(idx[:, TAPS - 1], starts)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tile_room(h_idx: np.ndarray, w_idx: np.ndarray, th: int, tw: int, kernel: str) -> dict:
+    """What th × tw output tiles over these band tables stage, at most: input
+    rows (``rows``) and columns (``cols``), the staged row pitch in bytes
+    (``in_pitch``: a row's window from the 16-byte boundary at or below its
+    first byte to the one at or above its last), the vertical pass's row
+    pitch in floats (``mid_pitch``: ≡ tw/4 mod 32, so the rows that a warp
+    spans in the horizontal pass, tw/4 lanes each, start tw/4 banks apart),
+    and the shared memory a block takes."""
+    channels, itemsize = _KERNELS[kernel]
+    r_lo, r_hi = _tile_windows(h_idx, th)
+    c_lo, c_hi = _tile_windows(w_idx, tw)
+    rows, cols = int((r_hi - r_lo).max()) + 1, int((c_hi - c_lo).max()) + 1
+    in_pitch = _round16(cols * channels * itemsize + 16 - itemsize)
+    mid_pitch = cols + (tw // 4 - cols) % 32
+    return {"rows": rows, "cols": cols, "in_pitch": in_pitch, "mid_pitch": mid_pitch,
+            "smem_bytes": 32 * th + rows * in_pitch + 4 * channels * th * mid_pitch}
+
+
+@functools.lru_cache(maxsize=256)
+def tiling(in_hw, out_hw, batch: int, sms: int, kernel: str = "resize", method: str = "cubic",
+           align_corners: bool = False) -> dict:
+    """The launch of K2 (``kernel="preprocess"``: u8 × 3 channels) or K3
+    (``"resize"``: f32 planes) for ``batch`` images of ``in_hw`` → ``out_hw``
+    on a card with ``sms`` SMs.
+
+    A block owns ``th`` output rows × ``tw`` output columns of one image, all
+    channels. ``tw`` is the widest of 128, 64, 32 that cuts a row into 4
+    tiles or more (32 where none does); ``th`` the shortest up to 32 that
+    keeps the launch at 2 blocks an SM or fewer, so that at batch 1 it is one
+    wave of one to two blocks an SM, which timed best on the H100 at every
+    main-path shape. Then ``tile_room``'s fields over all tiles, and the
+    blocks an SM holds."""
+    (h_in, w_in), (h_out, w_out) = map(int, in_hw), map(int, out_hw)
+    tw = next((t for t in reversed(TILE_WIDTHS) if w_out >= 4 * t), TILE_WIDTHS[0])
+    col_tiles = -(-w_out // tw)
+    th = next((t for t in range(1, MAX_TILE_H + 1) if batch * -(-h_out // t) * col_tiles <= 2 * sms), MAX_TILE_H)
+    h_idx, _ = band_taps(h_in, h_out, method, align_corners)
+    w_idx, _ = band_taps(w_in, w_out, method, align_corners)
+    room = tile_room(h_idx, w_idx, th, tw, kernel)
+    while room["smem_bytes"] > SMEM_BLOCK and th > 1:
+        th -= 1
+        room = tile_room(h_idx, w_idx, th, tw, kernel)
+    grid = (col_tiles, -(-h_out // th), batch)
+    return {"th": th, "tw": tw, "grid": grid, "blocks": grid[0] * grid[1] * grid[2],
+            **room, "blocks_per_sm": min(MIN_BLOCKS, SMEM_SM // (room["smem_bytes"] + 1024))}
 
 
 @functools.lru_cache(maxsize=64)
@@ -60,17 +139,24 @@ def _device_taps(in_size, out_size, method, align_corners, device):
 def _lib():
     lib = build.load("resize")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.preprocess_u8.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, f, f, f, f, f, f, p]
+    tile = [i] * 7  # th, tw, rows, in_pitch, mid_pitch, smem_bytes, aligned
+    lib.preprocess_u8.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, *tile, f, f, f, f, f, f, p]
     lib.preprocess_u8.restype = ctypes.c_int
-    lib.resize_f32.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
+    lib.resize_f32.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p, *tile, p]
     lib.resize_f32.restype = ctypes.c_int
     return lib
 
 
-def _taps(in_hw, out_hw, method, align_corners, device):
-    h_idx, h_w = _device_taps(int(in_hw[0]), int(out_hw[0]), method, bool(align_corners), device)
-    w_idx, w_w = _device_taps(int(in_hw[1]), int(out_hw[1]), method, bool(align_corners), device)
-    return h_idx.data_ptr(), h_w.data_ptr(), w_idx.data_ptr(), w_w.data_ptr()
+def _launch_args(x: torch.Tensor, in_hw, out_hw, kernel, method, align_corners):
+    """The tap tables' pointers, then the tiling's fields as the C entries take them."""
+    h_idx, h_w = _device_taps(int(in_hw[0]), int(out_hw[0]), method, bool(align_corners), x.device)
+    w_idx, w_w = _device_taps(int(in_hw[1]), int(out_hw[1]), method, bool(align_corners), x.device)
+    channels, itemsize = _KERNELS[kernel]
+    t = tiling(tuple(in_hw), tuple(out_hw), x.shape[0], build.sm_count(x.device.index), kernel, method,
+               bool(align_corners))
+    aligned = x.data_ptr() % 16 == 0 and in_hw[1] * channels * itemsize % 16 == 0
+    return (h_idx.data_ptr(), h_w.data_ptr(), w_idx.data_ptr(), w_w.data_ptr(), t["th"], t["tw"], t["rows"],
+            t["in_pitch"], t["mid_pitch"], t["smem_bytes"], int(aligned))
 
 
 def _check_cuda(x: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:
@@ -95,6 +181,14 @@ def preprocess_plain(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
     return ((x - mean_v) / std_v).permute(0, 3, 1, 2).contiguous()
 
 
+def normalize_affine(mean: Sequence[float], std: Sequence[float]) -> Tuple[list, list]:
+    """(x/255 - mean_c) / std_c as x·scale_c + bias_c: the constants,
+    worked out in double and rounded once to float32, that K2 folds in."""
+    scale = [float(np.float32(1.0 / (255.0 * s))) for s in std]
+    bias = [float(np.float32(-m / s)) for m, s in zip(mean, std)]
+    return scale, bias
+
+
 def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence[float],
                      std: Sequence[float], bgr_to_rgb: bool = True) -> torch.Tensor:
     """``preprocess_plain`` for a CPU tensor; one K2 launch for a CUDA tensor."""
@@ -106,11 +200,12 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
         raise ValueError(f"preprocess kernel takes 3-channel frames, got {c}")
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
     out = torch.empty((b, 3, h_out, w_out), dtype=torch.float32, device=imgs.device)
+    scale, bias = normalize_affine(mean, std)
     with torch.cuda.device(imgs.device):
         err = _lib().preprocess_u8(
             imgs.data_ptr(), out.data_ptr(), b, h, w, h_out, w_out, int(bgr_to_rgb),
-            *_taps((h, w), (h_out, w_out), "cubic", False, imgs.device), *map(float, mean),
-            *map(float, std), torch.cuda.current_stream().cuda_stream)
+            *_launch_args(imgs, (h, w), (h_out, w_out), "preprocess", "cubic", False), *scale, *bias,
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "preprocess kernel launch")
     fused_preprocess.launches += 1
     return out
@@ -119,31 +214,39 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
 fused_preprocess.launches = 0
 
 
-# -- K3: f32 planes → resized planes -----------------------------------------
+# -- K3: f32 planes → resized planes, f32 or wrapped to u8 -------------------
 
 def resize_planes_plain(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic",
-                        align_corners: bool = False) -> torch.Tensor:
-    """f32 (B, H, W) or (H, W) → (B, H_out, W_out) or (H_out, W_out)."""
-    return resize2d(x[..., None], out_hw, method, align_corners)[..., 0]
+                        align_corners: bool = False, output: str = "f32") -> torch.Tensor:
+    """f32 (B, H, W) or (H, W) → (B, H_out, W_out) or (H_out, W_out), f32 or
+    with ``output="u8"`` the reference's wrap-around uint8 cast of it."""
+    if output not in _OUTPUTS:
+        raise ValueError(f"output must be one of {sorted(_OUTPUTS)}, got {output!r}")
+    out = resize2d(x[..., None], out_hw, method, align_corners)[..., 0]
+    return wraparound_u8(out) if output == "u8" else out
 
 
 def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic",
-                  align_corners: bool = False) -> torch.Tensor:
+                  align_corners: bool = False, output: str = "f32") -> torch.Tensor:
     """``resize_planes_plain`` for a CPU tensor; one K3 launch for all the
-    planes of a CUDA tensor."""
+    planes of a CUDA tensor. The u8 route stores ``(int)trunc(v) & 255``,
+    ``wraparound_u8``'s function for |trunc(v)| < 2**24."""
     if x.device.type == "cpu":
-        return resize_planes_plain(x, out_hw, method, align_corners)
+        return resize_planes_plain(x, out_hw, method, align_corners, output)
     if method not in ("cubic", "linear"):
         raise ValueError(f"resize kernel takes cubic or linear, got {method!r}")
+    if output not in _OUTPUTS:
+        raise ValueError(f"output must be one of {sorted(_OUTPUTS)}, got {output!r}")
     planes = x if x.dim() == 3 else x[None]
     _check_cuda(planes, torch.float32, 3, "resize")
     b, h, w = planes.shape
     h_out, w_out = int(out_hw[0]), int(out_hw[1])
-    out = torch.empty((b, h_out, w_out), dtype=torch.float32, device=x.device)
+    dtype = torch.uint8 if output == "u8" else torch.float32
+    out = torch.empty((b, h_out, w_out), dtype=dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().resize_f32(
-            planes.data_ptr(), out.data_ptr(), b, h, w, h_out, w_out,
-            *_taps((h, w), (h_out, w_out), method, align_corners, x.device),
+            planes.data_ptr(), out.data_ptr(), b, h, w, h_out, w_out, _OUTPUTS[output],
+            *_launch_args(planes, (h, w), (h_out, w_out), "resize", method, align_corners),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "resize kernel launch")
     resize_planes.launches += 1

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from depth_estimation_tpu_torch.config import DPT_PREPROCESS
+from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
@@ -109,20 +109,47 @@ def test_attention_kernel_refuses_other_head_dims(cuda):
 
 
 @pytest.mark.parametrize("batch", [1, 4])
-def test_preprocess_kernel_matches_plain(cuda, batch):
-    cfg = DPT_PREPROCESS
+@pytest.mark.parametrize("cfg,out_hw", [(DPT_PREPROCESS, (384, 512)), (SMALL_PREPROCESS, (192, 256))],
+                         ids=["dpt", "midas"])
+def test_preprocess_kernel_matches_plain(cuda, batch, cfg, out_hw):
     rng = np.random.default_rng(batch)
     imgs = torch.from_numpy(rng.integers(0, 256, (batch, 480, 640, 3), np.uint8)).to(cuda)
     before = trsz.fused_preprocess.launches
-    got = trsz.fused_preprocess(imgs, (384, 512), cfg.mean, cfg.std)
+    got = trsz.fused_preprocess(imgs, out_hw, cfg.mean, cfg.std)
     assert trsz.fused_preprocess.launches == before + 1
-    ref = trsz.preprocess_plain(imgs, (384, 512), cfg.mean, cfg.std)
+    ref = trsz.preprocess_plain(imgs, out_hw, cfg.mean, cfg.std)
     torch.testing.assert_close(got, ref, atol=3e-5, rtol=0)
 
 
+def _offset_view(x, offset):
+    """A contiguous copy of x whose data pointer lies ``offset`` values past
+    an allocation's 16-byte-aligned start."""
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    flat[offset:].copy_(x.reshape(-1))
+    return flat[offset:].view(x.shape)
+
+
+@pytest.mark.parametrize("shape,out_hw,offset", [
+    ((1, 7, 11, 3), (5, 9), 0), ((2, 3, 5, 3), (7, 2), 0), ((1, 50, 37, 3), (96, 130), 0),
+    ((1, 480, 640, 3), (384, 512), 1), ((2, 480, 640, 3), (192, 256), 5)],
+    ids=["7x11", "3x5", "odd_w", "offset1", "offset5_midas"])
+def test_preprocess_kernel_ragged_and_unaligned(cuda, shape, out_hw, offset):
+    """Rows of 33, 15 and 111 bytes (not multiples of 16), a 3×5 frame, and
+    aligned shapes at a pointer 1 or 5 bytes past a 16-byte boundary: all
+    staged by ordinary loads, in the same kernel."""
+    cfg = DPT_PREPROCESS
+    rng = np.random.default_rng(7)
+    imgs = _offset_view(torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(cuda), offset)
+    before = trsz.fused_preprocess.launches
+    got = trsz.fused_preprocess(imgs, out_hw, cfg.mean, cfg.std)
+    assert trsz.fused_preprocess.launches == before + 1
+    torch.testing.assert_close(got, trsz.preprocess_plain(imgs, out_hw, cfg.mean, cfg.std), atol=3e-5, rtol=0)
+
+
 @pytest.mark.parametrize("method,align_corners,in_hw,out_hw", [
-    ("cubic", False, (384, 512), (480, 640)), ("cubic", False, (480, 640), (384, 512)),
-    ("linear", True, (24, 32), (48, 64)), ("linear", False, (3, 5), (7, 2))])
+    ("cubic", False, (384, 512), (480, 640)), ("cubic", False, (192, 256), (480, 640)),
+    ("cubic", False, (480, 640), (384, 512)), ("linear", True, (24, 32), (48, 64)), ("linear", False, (3, 5), (7, 2)),
+    ("cubic", False, (41, 67), (300, 131)), ("linear", True, (5, 3), (2, 7))])
 def test_resize_kernel_matches_plain(cuda, gen, method, align_corners, in_hw, out_hw):
     x = torch.rand((2, *in_hw), generator=gen, device=cuda)
     before = trsz.resize_planes.launches
@@ -130,6 +157,78 @@ def test_resize_kernel_matches_plain(cuda, gen, method, align_corners, in_hw, ou
     assert trsz.resize_planes.launches == before + 1
     ref = trsz.resize_planes_plain(x, out_hw, method, align_corners)
     torch.testing.assert_close(got, ref, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("in_hw", [(384, 512), (192, 256)], ids=["dpt", "midas"])
+def test_resize_kernel_batches_and_unaligned(cuda, gen, batch, in_hw):
+    """The main paths' K3 at the stream's microbatch, and at a pointer one
+    value past a 16-byte boundary (ordinary loads)."""
+    x = torch.rand((batch, *in_hw), generator=gen, device=cuda)
+    for planes in (x, _offset_view(x, 1)):
+        before = trsz.resize_planes.launches
+        got = trsz.resize_planes(planes, (480, 640))
+        assert trsz.resize_planes.launches == before + 1
+        torch.testing.assert_close(got, trsz.resize_planes_plain(planes, (480, 640)), atol=3e-5, rtol=0)
+
+
+def _assert_u8_agrees(got, want, f32):
+    """Bytes may differ only where the f32 map lies within 1e-3 of an integer,
+    where two orders of summation can truncate differently (the rule of
+    tests/test_torch_estimator.py)."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.uint8
+    differ = got != want
+    near_int = (f32 - f32.round()).abs() < 1e-3
+    assert not (differ & ~near_int).any(), f"{int((differ & ~near_int).sum())} bytes differ away from an integer"
+
+
+@pytest.mark.parametrize("shape,out_hw,offset", [
+    ((1, 384, 512), (480, 640), 0), ((4, 384, 512), (480, 640), 0), ((1, 192, 256), (480, 640), 0),
+    ((4, 192, 256), (480, 640), 0), ((2, 41, 67), (300, 131), 0), ((1, 384, 512), (480, 640), 1)],
+    ids=["dpt", "dpt_b4", "midas", "midas_b4", "ragged", "offset1"])
+def test_resize_kernel_u8_route(cuda, gen, shape, out_hw, offset):
+    """K3's fused wrap-around cast against ``wraparound_u8`` of the plain
+    resize, on depth-like values from -50 to 550 (negatives and values past
+    255 wrap)."""
+    x = _offset_view(torch.rand(shape, generator=gen, device=cuda) * 600 - 50, offset)
+    before = trsz.resize_planes.launches
+    got = trsz.resize_planes(x, out_hw, output="u8")
+    assert trsz.resize_planes.launches == before + 1
+    f32 = trsz.resize_planes_plain(x, out_hw)
+    _assert_u8_agrees(got, trsz.resize_planes_plain(x, out_hw, output="u8"), f32)
+
+
+# (kernel, in_hw, out_hw) → (th, tw, blocks) at batch 1 and 4 on 132 SMs, the
+# tilings whose windows tests/test_torch_kernels.py walks
+_K23_TILINGS = {("preprocess", (480, 640), (384, 512)): ((6, 128, 256), (24, 128, 256)),
+                ("preprocess", (480, 640), (192, 256)): ((3, 64, 256), (12, 64, 256)),
+                ("resize", (384, 512), (480, 640)): ((10, 128, 240), (32, 128, 300)),
+                ("resize", (192, 256), (480, 640)): ((10, 128, 240), (32, 128, 300))}
+
+
+def test_resize_tilings_at_main_shapes(cuda):
+    for (kernel, in_hw, out_hw), want in _K23_TILINGS.items():
+        for batch, (th, tw, blocks) in zip((1, 4), want):
+            t = trsz.tiling(in_hw, out_hw, batch, 132, kernel)
+            assert (t["th"], t["tw"], t["blocks"]) == (th, tw, blocks), (kernel, in_hw, out_hw, batch, t)
+            assert t["blocks"] <= 132 * t["blocks_per_sm"]
+
+
+def test_resize_kernels_refuse(cuda, gen):
+    x = torch.rand((1, 8, 8), generator=gen, device=cuda)
+    before = (trsz.resize_planes.launches, trsz.fused_preprocess.launches)
+    with pytest.raises(ValueError, match="output must be"):
+        trsz.resize_planes(x, (4, 4), output="u16")
+    with pytest.raises(ValueError, match="cubic or linear"):
+        trsz.resize_planes(x, (4, 4), "nearest")
+    with pytest.raises(ValueError, match="contiguous"):
+        trsz.resize_planes(x.transpose(1, 2), (4, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        trsz.fused_preprocess(torch.zeros((1, 8, 8, 3), device=cuda), (4, 4), (0.5,) * 3, (0.5,) * 3)
+    with pytest.raises(ValueError, match="3-channel"):
+        trsz.fused_preprocess(torch.zeros((1, 8, 8, 4), dtype=torch.uint8, device=cuda), (4, 4), (0.5,) * 3,
+                              (0.5,) * 3)
+    assert (trsz.resize_planes.launches, trsz.fused_preprocess.launches) == before
 
 
 # MiDaS v2.1's stride-1 conv2s at a 480×640 source (192×256 network input), G = 32

@@ -15,8 +15,10 @@ from depth_estimation_tpu.ops.pallas.attention import _attention_xla
 from depth_estimation_tpu.ops.pallas.attention import multi_head_attention as jax_mha
 from depth_estimation_tpu.ops.pallas.grouped_conv import grouped_conv3x3_pallas
 from depth_estimation_tpu.ops.pallas.resize import pallas_preprocess, pallas_resize2d
+from depth_estimation_tpu.ops.postprocess import wraparound_u8_jax
 from depth_estimation_tpu.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+from depth_estimation_tpu_torch.ops.kernels import build
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 
@@ -84,6 +86,215 @@ def test_resize_plain_matches_pallas(rng, in_hw, out_hw):
     before = trsz.resize_planes.launches
     torch.testing.assert_close(trsz.resize_planes(torch.from_numpy(d), out_hw), got[0], rtol=0, atol=0)
     assert trsz.resize_planes.launches == before
+
+
+# K2 and K3 (csrc/resize.cu): the tiling's staged windows, and the kernel's
+# two passes in f32 with its folded normalization and order of summation.
+
+# (kernel, in_hw, out_hw): the main paths' shapes (DPT_Large, MiDaS)
+_K23_MAIN = [("preprocess", (480, 640), (384, 512)), ("preprocess", (480, 640), (192, 256)),
+             ("resize", (384, 512), (480, 640)), ("resize", (192, 256), (480, 640))]
+_K23_RAGGED = [("preprocess", (7, 11), (5, 9)), ("preprocess", (3, 5), (7, 2)), ("preprocess", (50, 37), (96, 130)),
+               ("resize", (3, 5), (7, 2)), ("resize", (5, 3), (2, 7)), ("resize", (41, 67), (300, 131)),
+               ("resize", (24, 32), (48, 64))]
+
+
+def _k23_walk_tiles(kernel, in_hw, out_hw, batch, method="cubic", align_corners=False, sms=132):
+    """The kernel's steps 1-2 for every tile of ``tiling()``: the window from
+    warp 0's min/max over the tile's row taps and column taps (a thread's
+    output past the image copies the taps of its previous one), then the
+    staged byte range [sb, se) of each row. Checks each against the
+    tiling's room."""
+    channels, itemsize = trsz._KERNELS[kernel]
+    t = trsz.tiling(in_hw, out_hw, batch, sms, kernel, method, align_corners)
+    (h_in, w_in), (h_out, w_out) = in_hw, out_hw
+    h_idx, _ = trsz.band_taps(h_in, h_out, method, align_corners)
+    w_idx, _ = trsz.band_taps(w_in, w_out, method, align_corners)
+    kpix, row_bytes = channels * itemsize, w_in * channels * itemsize
+    assert t["grid"] == (-(-w_out // t["tw"]), -(-h_out // t["th"]), batch)
+    assert t["smem_bytes"] == 32 * t["th"] + t["rows"] * t["in_pitch"] + 4 * channels * t["th"] * t["mid_pitch"]
+    assert t["smem_bytes"] <= 227 * 1024 and t["in_pitch"] % 16 == 0 and t["mid_pitch"] % 32 == t["tw"] // 4 % 32
+    for r0 in range(0, h_out, t["th"]):
+        rows = h_idx[r0:r0 + t["th"]]
+        rlo, rhi = rows[:, 0].min(), rows[:, 3].max()
+        assert rhi - rlo + 1 <= t["rows"] and (np.diff(rows, axis=1) >= 0).all()
+        for c0 in range(0, w_out, t["tw"]):
+            taps = w_idx[c0:c0 + t["tw"]]
+            clo, chi = taps[:, 0].min(), taps[:, 3].max()
+            nc = chi - clo + 1
+            sb, se = (clo * kpix) & ~15, min(((chi + 1) * kpix + 15) & ~15, row_bytes)
+            assert nc <= t["cols"] <= t["mid_pitch"] and se - sb <= t["in_pitch"]
+            # every tap of the tile's rows and columns lies in the window, and
+            # every byte the vertical pass reads lies in the staged range
+            assert rlo <= rows.min() and rows.max() <= rhi and clo <= taps.min() and taps.max() <= chi
+            assert clo * kpix - sb >= 0 and (chi + 1) * kpix - sb <= se - sb
+            if row_bytes % 16 == 0:
+                assert sb % 16 == 0 and se % 16 == 0
+    return t
+
+
+@pytest.mark.parametrize("kernel,in_hw,out_hw", _K23_MAIN, ids=["k2_dpt", "k2_midas", "k3_dpt", "k3_midas"])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k23_tiling_windows_at_main_shapes(kernel, in_hw, out_hw, batch):
+    """At the main paths' shapes: every staged window holds its tile's taps
+    within the tiling's room, a launch is one wave, and at batch 1 one of one
+    to two blocks an SM (132 on the H100)."""
+    t = _k23_walk_tiles(kernel, in_hw, out_hw, batch)
+    assert t["blocks"] <= 132 * t["blocks_per_sm"]
+    if batch == 1:
+        assert 132 <= t["blocks"] <= 2 * 132
+
+
+@pytest.mark.parametrize("kernel,in_hw,out_hw", _K23_RAGGED)
+def test_k23_tiling_windows_at_ragged_shapes(kernel, in_hw, out_hw):
+    """Ragged shapes, several batches and SM counts; K3 also in linear with
+    and without align_corners (K2 is cubic only)."""
+    methods = [("cubic", False)] + ([("linear", True), ("linear", False)] if kernel == "resize" else [])
+    for method, align_corners in methods:
+        for batch, sms in ((1, 132), (3, 132), (1, 8)):
+            _k23_walk_tiles(kernel, in_hw, out_hw, batch, method, align_corners, sms)
+
+
+def _k23_horizontal_read_banks(kernel, in_hw, out_hw, batch=1):
+    """For every warp read of the horizontal pass at ``tiling()``'s tiles:
+    the most distinct words of the intermediate that fall on one bank. Lane
+    tid makes outputs cb + k·tw/4 (cb = tid mod tw/4) of (channel, row) pair
+    tid // (tw/4), then pairs 256/(tw/4) further on; tap j of output k reads
+    word pair·mid_pitch + idx[k][j] - clo."""
+    channels = trsz._KERNELS[kernel][0]
+    t = trsz.tiling(in_hw, out_hw, batch, 132, kernel)
+    w_idx, _ = trsz.band_taps(in_hw[1], out_hw[1])
+    th, cs = t["th"], t["tw"] // 4
+    worst = 0
+    for c0 in range(0, out_hw[1], t["tw"]):
+        tw = min(t["tw"], out_hw[1] - c0)
+        clo = w_idx[c0:c0 + tw, 0].min()
+        for r0 in range(0, out_hw[0], th):
+            pairs = channels * min(th, out_hw[0] - r0)
+            for tid in np.arange(trsz.THREADS).reshape(-1, 32):
+                cb, pair0 = tid % cs, tid // cs
+                for pair in (pair0 + step for step in range(0, pairs, trsz.THREADS // cs)):
+                    ch, r = pair // (pairs // channels), pair % (pairs // channels)
+                    for k in range(4):
+                        live = (cb + k * cs < tw) & (pair < pairs)
+                        col = c0 + np.where(live, cb + k * cs, 0)
+                        for j in range(4):
+                            words = ((ch * th + r) * t["mid_pitch"] + w_idx[col, j] - clo)[live]
+                            if len(words):
+                                worst = max(worst, np.bincount(np.unique(words) % 32).max())
+    return worst
+
+
+@pytest.mark.parametrize("kernel,in_hw,out_hw,most", [(*case, most) for case, most in zip(_K23_MAIN, (2, 2, 1, 1))],
+                         ids=["k2_dpt", "k2_midas", "k3_dpt", "k3_midas"])
+def test_k23_horizontal_reads_bank_conflicts(kernel, in_hw, out_hw, most):
+    """K3's upscales read the intermediate without bank conflicts; K2's
+    downscales by 1.25 and 2.5 span more than 32 words a warp row, so two
+    words share a bank, no more (the mid pitch keeps a warp's two rows at
+    K2-MiDaS's 64-wide tiles apart)."""
+    assert _k23_horizontal_read_banks(kernel, in_hw, out_hw) == most
+
+
+def test_k23_tiling_constants_match_the_source():
+    """tiling() sizes what the kernel assumes: its threads a block, blocks an
+    SM under __launch_bounds__, and tallest tile (one row tap a lane of warp 0)."""
+    src = (build.CSRC / "resize.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kThreads"]), int(consts["kMinBlocks"]), int(consts["kMaxTileH"])) == (
+        trsz.THREADS, trsz.MIN_BLOCKS, trsz.MAX_TILE_H)
+    assert "__launch_bounds__(kThreads, kMinBlocks)" in src and trsz.MAX_TILE_H <= 32
+    assert trsz.TILE_WIDTHS == (32, 64, 128)  # the kernel's column groups: 8, 16 or 32 lanes
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add: the product is exact in float64, one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _k23_passes(x, in_hw, out_hw, method="cubic", align_corners=False):
+    """The kernel's vertical then horizontal pass on x (B, H, W, C) f32, with
+    its order of summation: w0·x0, then fma of taps 1, 2, 3."""
+    h_idx, h_w = (torch.from_numpy(a) for a in trsz.band_taps(in_hw[0], out_hw[0], method, align_corners))
+    w_idx, w_w = (torch.from_numpy(a) for a in trsz.band_taps(in_hw[1], out_hw[1], method, align_corners))
+    h_idx, w_idx = h_idx.long(), w_idx.long()
+    v = h_w[:, 0, None, None] * x[:, h_idx[:, 0]]
+    for i in range(1, 4):
+        v = _fma(h_w[:, i, None, None].expand_as(v), x[:, h_idx[:, i]], v)
+    acc = w_w[:, 0, None] * v[:, :, w_idx[:, 0]]
+    for j in range(1, 4):
+        acc = _fma(w_w[:, j, None].expand_as(acc), v[:, :, w_idx[:, j]], acc)
+    return acc  # (B, H_out, W_out, C)
+
+
+def _k2_emulate(imgs, out_hw, mean, std, bgr=True):
+    acc = _k23_passes(imgs.float(), imgs.shape[1:3], out_hw)
+    acc = acc.flip(-1) if bgr else acc
+    scale, bias = (torch.tensor(v, dtype=torch.float32) for v in trsz.normalize_affine(mean, std))
+    return _fma(acc, scale.expand_as(acc), bias.expand_as(acc)).permute(0, 3, 1, 2)
+
+
+def _k3_emulate(planes, out_hw, method="cubic", align_corners=False, output="f32"):
+    out = _k23_passes(planes[..., None], planes.shape[1:], out_hw, method, align_corners)[..., 0]
+    return (out.double().trunc().long() & 255).to(torch.uint8) if output == "u8" else out
+
+
+@pytest.mark.parametrize("cfg,in_hw", [(DPT_PREPROCESS, (120, 160)), (SMALL_PREPROCESS, (120, 160)),
+                                       (SMALL_PREPROCESS, (480, 640))], ids=["dpt", "small", "small_480x640"])
+def test_k2_two_pass_arithmetic_holds_plain_and_pallas(rng, cfg, in_hw):
+    img = rng.integers(0, 256, (*in_hw, 3), np.uint8)
+    out_hw = compute_resize_shape(*in_hw, cfg)
+    got = _k2_emulate(torch.from_numpy(img)[None], out_hw, cfg.mean, cfg.std)
+    plain = trsz.preprocess_plain(torch.from_numpy(img)[None], out_hw, cfg.mean, cfg.std)
+    torch.testing.assert_close(got, plain, atol=3e-5, rtol=0)
+    ref = np.asarray(pallas_preprocess(img, out_hw, tuple(cfg.mean), tuple(cfg.std), interpret=True))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, atol=3e-5, rtol=0)
+
+
+def test_k2_two_pass_arithmetic_at_dpt_main_shape(rng):
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 480, 640, 3), np.uint8))
+    got = _k2_emulate(imgs, (384, 512), DPT_PREPROCESS.mean, DPT_PREPROCESS.std)
+    plain = trsz.preprocess_plain(imgs, (384, 512), DPT_PREPROCESS.mean, DPT_PREPROCESS.std)
+    torch.testing.assert_close(got, plain, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("in_hw,out_hw,method,align_corners", [
+    ((96, 128), (120, 160), "cubic", False), ((120, 160), (96, 128), "cubic", False),
+    ((192, 256), (480, 640), "cubic", False), ((24, 32), (48, 64), "linear", True), ((5, 3), (2, 7), "cubic", False)])
+def test_k3_two_pass_arithmetic_holds_plain_and_pallas(rng, in_hw, out_hw, method, align_corners):
+    d = rng.random(in_hw).astype(np.float32)
+    got = _k3_emulate(torch.from_numpy(d)[None], out_hw, method, align_corners)
+    plain = trsz.resize_planes_plain(torch.from_numpy(d)[None], out_hw, method, align_corners)
+    torch.testing.assert_close(got, plain, atol=3e-5, rtol=0)
+    ref = np.asarray(pallas_resize2d(d, out_hw, method, align_corners, interpret=True))
+    np.testing.assert_allclose(got[0].numpy(), ref, atol=3e-5, rtol=0)
+
+
+def _assert_u8_agrees(got, want, f32):
+    """Bytes may differ only where the f32 map lies within 1e-3 of an integer
+    (the rule of tests/test_torch_estimator.py)."""
+    got, want, f32 = np.asarray(got), np.asarray(want), np.asarray(f32)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    differ = got != want
+    near_int = np.abs(f32 - np.round(f32)) < 1e-3
+    assert not (differ & ~near_int).any(), f"{int((differ & ~near_int).sum())} bytes differ away from an integer"
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((96, 128), (120, 160)), ((48, 64), (120, 160)), ((120, 160), (96, 128))])
+def test_k3_u8_route_matches_jax_wraparound(rng, in_hw, out_hw):
+    """The u8 route's plain version against JAX's wrap-around cast of the
+    Pallas resize, on depth-like values from -50 to 550 (negatives and
+    values past 255 wrap); and the kernel's (int)trunc(v) & 255 epilogue on
+    its own two passes."""
+    d = (rng.random(in_hw) * 600 - 50).astype(np.float32)
+    f32 = np.asarray(pallas_resize2d(d, out_hw, interpret=True))
+    want = np.asarray(wraparound_u8_jax(f32))
+    plain = trsz.resize_planes_plain(torch.from_numpy(d), out_hw, output="u8")
+    assert plain.dtype == torch.uint8 and plain.shape == out_hw
+    _assert_u8_agrees(plain.numpy(), want, f32)
+    before = trsz.resize_planes.launches
+    torch.testing.assert_close(trsz.resize_planes(torch.from_numpy(d), out_hw, output="u8"), plain, rtol=0, atol=0)
+    assert trsz.resize_planes.launches == before
+    _assert_u8_agrees(_k3_emulate(torch.from_numpy(d)[None], out_hw, output="u8")[0].numpy(), want, f32)
 
 
 # The arithmetic of K1's float32 route (csrc/attention.cu): 3xTF32 products

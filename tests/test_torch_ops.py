@@ -41,6 +41,24 @@ def test_band_taps_densify_to_interp_matrix(method, align_corners):
         np.testing.assert_array_equal(dense, jresize.interp_matrix(i, o, method, align_corners))
 
 
+# the main paths' resize pairs (frame → network input → frame) and ragged ones
+BAND_PAIRS = [(640, 512), (512, 640), (480, 384), (384, 480), (640, 256), (480, 192), (192, 480), (256, 640),
+              (3, 7), (5, 2), (1, 7), (577, 769)]
+
+
+@pytest.mark.parametrize("method,align_corners", [("cubic", False), ("linear", True)])
+@pytest.mark.parametrize("in_size,out_size", BAND_PAIRS)
+def test_band_taps_pad_inside_the_band(in_size, out_size, method, align_corners):
+    """Each row's 4 indices are non-decreasing and lie within its first and
+    last nonzero column, so a tile's input window holds every tap it reads."""
+    idx, _ = band_taps(in_size, out_size, method, align_corners)
+    nonzero = jresize.interp_matrix(in_size, out_size, method, align_corners) != 0
+    first = nonzero.argmax(axis=1)
+    last = in_size - 1 - nonzero[:, ::-1].argmax(axis=1)
+    assert (np.diff(idx, axis=1) >= 0).all()
+    assert (idx >= first[:, None]).all() and (idx <= last[:, None]).all()
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_compute_resize_shape_matches(name):
     tc, jc = getattr(tcfg, CONFIGS[name]), getattr(jcfg, CONFIGS[name])
