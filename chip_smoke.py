@@ -18,7 +18,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    three TF32 products for each f32 one at 495 TFLOP/s, and its f32-FMA
    bound is kept beside it; otherwise the rate of the input type). K1 is
    checked in f32 and in bf16 at (1|4, 16, 769, 64) and (1, 16, 577, 64)
-   and timed in both at (1, 16, 769, 64); K4 (grouped 3×3 conv) is checked
+   and timed in both at (1, 16, 769, 64), and at DPT_Hybrid's 12 heads,
+   (1|4, 12, 769, 64), checked in both and timed in f32; K4 (grouped 3×3 conv) is checked
    and timed at the four MiDaS v2.1 conv2 shapes in f32 (3xTF32 on the tensor
    cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it) and in bf16
    (bf16 mma on the tensor cores; bound at the bf16 rate), each with its
@@ -33,7 +34,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    seed 0, float32) under ``VidStream`` on ``synthetic:16x480x640`` into an
    .avi, per frame and with ``microbatch=4``, each after one untimed batch
    of its size (set-up); the kernels' launch counts are zeroed before and
-   read after each run and asserted;
+   read after each run and asserted (launches a program: K1 24, K2 1, K3 1, K4 0);
 5. hold    — the same weights on a ``device="cpu"`` estimator (plain paths) on
    a 240×320 frame: max |gpu - cpu| / max |cpu| < 1e-3, the package's
    accuracy gate (BASELINE.md:23);
@@ -42,8 +43,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    K4's device ms and calls per program, and the largest kernels;
 7. bf16    — the opt-in bfloat16 mode on the same weights: finite, within 5%
    of the f32 map's range, its host-clock ms per frame and its K1 launches
-   (asserted: 24 a frame, all on the bf16 route); then bf16_profile, phase 6
-   for that bf16 estimator;
+   (asserted: 24 a frame, and in a profiled frame all on the bf16 route); then
+   bf16_profile, phase 6 for that bf16 estimator;
 8. midas_stream, midas_hold, midas_profile, midas_bf16, midas_bf16_profile
    — phases 4–7 for ``DepthEstimator("MiDaS")`` (v2.1 Large: ResNeXt-101
    32x8d, full width), whose frame program launches K4 30 times and
@@ -51,10 +52,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    where no kernel may be launched more than 2,000 times a program: cuDNN's
    heuristic once ran a head conv there as an FFT of 33,024 launches); its
    bf16 bound is 0.1, the JAX package's own (tests/test_midas_v21.py), and
-   midas_bf16_profile gives the bf16 frame's busy time, idle share and K4 sum.
+   midas_bf16_profile gives the bf16 frame's busy time, idle share and K4 sum;
+9. small_stream, small_hold, small_profile, small_bf16 — phases 4–7 for
+   ``DepthEstimator("MiDaS_small")`` (EfficientNet-Lite3, full width; 192×256
+   network input): K1 0, K2 1, K3 1, K4 0 launches a program; profiled at
+   batch 1 under the 2,000-launch cap (cuDNN's depthwise convs are new
+   here); bf16 bound 0.1;
+10. hybrid_stream, hybrid_hold, hybrid_profile, hybrid_bf16 — the same for
+   ``DepthEstimator("DPT_Hybrid")`` (ResNetV2-50 stem + ViT-B/16, full
+   width; 384×512): K1 12, K2 1, K3 1, K4 0 a program. Its bf16 bound is
+   0.3: on random weights the stem's 16 GroupNorm bottlenecks amplify bf16
+   rounding block by block (the whole bf16 map lies about 0.2 of the f32
+   map's range from it). So hybrid_bf16_tail also runs the bf16 ViT-B and
+   decoder on the f32 stem's features, which must land within 0.05.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
-path's per-frame stream; K2's and K3's for each family under ``per_shape``),
+path's per-frame stream, and under ``per_path`` on each family's; K2's and
+K3's for each network input under ``per_shape``),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
 phase. It imports nothing of JAX or of the JAX package.
@@ -350,7 +364,8 @@ def hold(est, net_cfg, phase="hold"):
 def bf16_mode(est, frame, bound, per_program, phase="bf16"):
     """The opt-in bfloat16 mode, no parity gate: finite and within ``bound``
     of the f32 map's range; host-clock ms per frame, over which the kernels'
-    launches must be ``per_program`` a frame. Returns the bf16 estimator."""
+    launches must be ``per_program`` a frame, and in one profiled frame every
+    K1 kernel on the bf16 route. Returns the bf16 estimator."""
     from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.ops import kernels
 
@@ -368,9 +383,36 @@ def bf16_mode(est, frame, bound, per_program, phase="bf16"):
     counts = kernels.launch_counts()
     want = {name: 8 * n for name, n in per_program.items()}
     check(counts == want, f"{phase}: launch counts {counts} != {want}")
-    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16, frame_ms=frame_ms,
-         launches=counts)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        est16.predict_device_u8(frame)
+        torch.cuda.synchronize()
+    k1_route = {name: sum(e.count for e in prof.key_averages() if name in e.key) for name in K1_KERNELS}
+    check(k1_route == {"attention_f32_kernel": 0, "attention_bf16_kernel": per_program["multi_head_attention"]},
+          f"{phase}: K1 kernels by route in one frame {k1_route}")
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16, bound=bound,
+         frame_ms=frame_ms, launches=counts, k1_route=k1_route)
     return est16
+
+
+def bf16_tail(est, est16, frame, bound, phase):
+    """DPT_Hybrid's ViT-B and decoder in bf16, fed the f32 stem's features
+    (cast to bf16): unlike the stem, they do not amplify rounding, so a fault
+    on the bf16 network path shows against ``bound``."""
+    kept = {}
+    stem32 = est.model.pretrained.model.patch_embed.backbone
+    stem16 = est16.model.pretrained.model.patch_embed.backbone
+    hooks = [stem32.register_forward_hook(lambda mod, inp, out: kept.update(out=out)),
+             stem16.register_forward_hook(lambda mod, inp, out: (
+                 kept["out"][0].to(out[0].dtype), [t.to(out[0].dtype) for t in kept["out"][1]]))]
+    try:
+        d32 = est.predict(frame)
+        d16 = est16.predict(frame)
+    finally:
+        for h in hooks:
+            h.remove()
+    rel = float(np.abs(d32 - d16).max() / np.abs(d32).max())
+    check(np.isfinite(d16).all() and rel < bound, f"{phase}: bf16 vs f32 max abs-rel {rel} over {bound}")
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel, bound=bound)
 
 
 def main():
@@ -417,6 +459,11 @@ def main():
         att16 = check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=True)
         check_attention(gen, 1, 16, 577, torch.bfloat16, 1e-2, 1e-2, timed=False)
         check_attention(gen, MICROBATCH, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
+        # DPT_Hybrid's ViT-B: 12 heads
+        att12 = check_attention(gen, 1, 12, 769, torch.float32, 2e-5, 1e-4, timed=True)
+        check_attention(gen, MICROBATCH, 12, 769, torch.float32, 2e-5, 1e-4, timed=False)
+        check_attention(gen, 1, 12, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
+        check_attention(gen, MICROBATCH, 12, 769, torch.bfloat16, 1e-2, 1e-2, timed=False)
         # K2 and K3 at both families' shapes: timed at batch 1, checked at the microbatch
         pre = {key: check_preprocess(frames[:1], hw, cfg, timed=True) for key, (hw, cfg) in resize_shapes.items()}
         rsz = {key: check_resize(gen, hw, (480, 640)) for key, (hw, _) in resize_shapes.items()}
@@ -457,31 +504,55 @@ def main():
     profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, max_calls=2000)
     profile_frames(bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16"), frame, "midas_bf16_profile")
 
-    path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
+    family_launches = {}
+    for name, prefix, net_cfg, k1, bound in [("MiDaS_small", "small", SMALL_PREPROCESS, 0, 0.1),
+                                             ("DPT_Hybrid", "hybrid", DPT_PREPROCESS, 12, 0.3)]:
+        fam = DepthEstimator(name, seed=0, device="cuda")
+        per_program = {"multi_head_attention": k1, "fused_preprocess": 1, "resize_planes": 1,
+                       "grouped_conv3x3": 0}
+        with tempfile.TemporaryDirectory() as tmp:
+            family_launches[name], fps = run_stream(fam, os.path.join(tmp, f"{prefix}.avi"), 1, per_program,
+                                                    f"{prefix}_stream")
+            run_stream(fam, os.path.join(tmp, f"{prefix}_mb.avi"), MICROBATCH, per_program, f"{prefix}_stream",
+                       per_frame_fps=fps)
+        hold(fam, net_cfg, f"{prefix}_hold")
+        profile_frames(fam, frame, f"{prefix}_profile", max_calls=2000)
+        fam16 = bf16_mode(fam, frame, bound, per_program, f"{prefix}_bf16")
+        if name == "DPT_Hybrid":
+            bf16_tail(fam, fam16, frame, 0.05, "hybrid_bf16_tail")
+        del fam, fam16
+        torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, row, path_launches, **extra):
+    path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
+    per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
+                "dpt_hybrid": family_launches["DPT_Hybrid"]}
+
+    def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": path_launches[name], **{k: row[k] for k in keys}, **extra}
+                "launches": path_launches[name], **{k: row[k] for k in keys},
+                "per_path": {p: per_path[p][name] for p in paths}, **extra}
 
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
-              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
+              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches, ("dpt_large", "dpt_hybrid"),
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
-              bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"]),
+              bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"],
+              vit_b_12_heads={k: att12[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                    "library_kernel", "bound_ms", "bound_by", "fma_bound_ms")}),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches,
+              "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
               per_shape={key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
                          for key in resize_shapes}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
-              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches,
+              "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches, per_path,
               **{k: rsz["dpt_384x512"][k] for k in K3_U8_KEYS},
               per_shape={key: {"launches": path[key]["resize_planes"],
                                **{k: rsz[key][k] for k in K23_KEYS + K3_U8_KEYS}} for key in resize_shapes}),
         entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
-              "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches,
+              "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches, per_path,
               bound_peak=gconv["layer3"]["bound_peak"], fma_bound_ms=gconv["layer3"]["fma_bound_ms"],
               bf16_ms=gconv16["layer3"]["ms"], bf16_plain_ms=gconv16["layer3"]["plain_ms"],
               bf16_bound_ms=gconv16["layer3"]["bound_ms"], bf16_library_ms=gconv16["layer3"]["library_ms"],

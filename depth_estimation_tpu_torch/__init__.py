@@ -7,8 +7,9 @@ PyTorch version that runs on the CPU. Entry points run on ``cuda`` unless
 the caller asks for ``device="cpu"``.
 
 Ported so far: the depth-only video path (``DepthEstimator``, ``VidStream``,
-``python -m depth_estimation_tpu_torch``) with ``DPT_Large`` and ``MiDaS``
-(v2.1 Large).
+``python -m depth_estimation_tpu_torch``) with all four families,
+``DPT_Large``, ``DPT_Hybrid``, ``MiDaS_small`` and ``MiDaS`` (v2.1 Large),
+and the hub's ``transforms``.
 """
 
 from depth_estimation_tpu_torch.estimator import DepthEstimator

@@ -41,13 +41,14 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Deterministic random weights for ``model`` from ``seed``, made on the
     CPU so that every device gets the same ones. Pipeline-valid and
     numerically meaningless: weights ~ N(0, 1/fan_in), biases ~ N(0, 0.02²),
-    LayerNorm and frozen batch norm at identity, embeddings ~ N(0, 0.02²).
-    Covers buffers too, since the model is built on the meta device."""
+    LayerNorm, GroupNorm and frozen batch norm at identity, embeddings ~
+    N(0, 0.02²). Covers buffers too, since the model is built on the meta
+    device."""
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for prefix, mod in model.named_modules():
         for name, p in [*mod.named_parameters(recurse=False), *mod.named_buffers(recurse=False)]:
-            if isinstance(mod, (nn.LayerNorm, FrozenBatchNorm2d)):
+            if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm2d)):
                 v = torch.ones(p.shape) if name in ("weight", "running_var") else torch.zeros(p.shape)
             elif name == "weight" and p.dim() >= 2:
                 fan_in = p.shape[0] if isinstance(mod, nn.ConvTranspose2d) else p[0].numel()
@@ -60,10 +61,13 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
 
 def _unread_hub_key(key: str) -> bool:
     """Keys a hub checkpoint carries that the forward never reads, skipped
-    by the JAX converters too: BatchNorm's step counters and the top fusion
-    block's first unit, which never gets a skip input. Any other missing or
-    unexpected key makes the strict load raise."""
-    return key.endswith(".num_batches_tracked") or key.startswith("scratch.refinenet4.resConfUnit1.")
+    by the JAX converters too: BatchNorm's step counters, the top fusion
+    block's first unit, which never gets a skip input, and the timm ViT's
+    final LayerNorm and classifier (DPT reads its hooks before that norm and
+    classifies nothing). Any other missing or unexpected key makes the strict
+    load raise."""
+    return key.endswith(".num_batches_tracked") or key.startswith(
+        ("scratch.refinenet4.resConfUnit1.", "pretrained.model.norm.", "pretrained.model.head."))
 
 
 class DepthEstimator:

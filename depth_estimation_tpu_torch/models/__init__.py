@@ -1,1 +1,1 @@
-"""DPT-Large, MiDaS v2.1 Large and the MiDaS decoder blocks they share, on PyTorch."""
+"""The four depth families (DPT-Large, DPT-Hybrid, MiDaS small, MiDaS v2.1 Large) and their blocks, on PyTorch."""

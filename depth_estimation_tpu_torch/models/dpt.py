@@ -1,14 +1,21 @@
-"""DPT-Large monocular depth (MiDaS v3), NCHW, torch-hub module names.
+"""DPT-Large / DPT-Hybrid monocular depth (MiDaS v3), NCHW, torch-hub module names.
 
 Counterpart of the JAX package's ``models/dpt.py``. Pipeline: ViT backbone
 with 4 hooks → per-hook readout-project (concat cls, linear, GELU) →
 reassemble to maps at strides 4/8/16/32 → 3×3 projection to ``features``
 channels → 4 feature-fusion blocks → monocular head.
 
+DPT-Large : ViT-L/16, hooks (5, 11, 17, 23), reassemble channels (256, 512, 1024, 1024)
+DPT-Hybrid: ResNetV2-50 stem + ViT-B/16. Pyramid levels 0 and 1 are the
+            stem's stage-1 and stage-2 maps as they are (the hub's
+            ``act_postprocess1/2`` are identities without weights); levels 2
+            and 3 are blocks 8 and 11, reassembled. Channels (256, 512, 768, 768)
+
 Module names follow the hub's ``DPTDepthModel`` (``pretrained.model.*``,
 ``pretrained.act_postprocess1-4.{0,3,4}``, ``scratch.*``), so the port's
-``state_dict`` is the hub's and loads with ``load_state_dict``.
-DPT-Hybrid (ResNetV2 stem) is not ported yet.
+``state_dict`` is the hub's and loads with ``load_state_dict``. The JAX
+package's per-section matmul precisions of DPT_Hybrid (the stem at
+'highest', the rest at 'high') are the port's full f32 (``device.full_f32``).
 """
 
 from __future__ import annotations
@@ -37,6 +44,14 @@ class DPTConfig:
 
 
 DPT_LARGE = DPTConfig()
+DPT_HYBRID = DPTConfig(
+    embed_dim=768,
+    depth=12,
+    num_heads=12,
+    hooks=(0, 1, 8, 11),
+    reassemble_channels=(256, 512, 768, 768),
+    hybrid=True,
+)
 
 
 class Readout(nn.Module):
@@ -79,14 +94,15 @@ class Reassemble(nn.Module):
 class DPT(nn.Module):
     def __init__(self, cfg: DPTConfig = DPT_LARGE):
         super().__init__()
-        if cfg.hybrid:
-            raise NotImplementedError("DPT_Hybrid is not yet ported")
         self.cfg = cfg
         C, f = cfg.embed_dim, cfg.features
+        levels = 2 if cfg.hybrid else 0  # pyramid levels that are the stem's conv maps
         self.pretrained = nn.Module()
-        self.pretrained.model = ViT(C, cfg.depth, cfg.num_heads, img_size=cfg.img_size, hooks=cfg.hooks)
-        for pos, rc in enumerate(cfg.reassemble_channels):
-            self.pretrained.add_module(f"act_postprocess{pos + 1}", Reassemble(C, rc, pos))
+        self.pretrained.model = ViT(C, cfg.depth, cfg.num_heads, img_size=cfg.img_size,
+                                    hooks=cfg.hooks[levels:], hybrid=cfg.hybrid)
+        for pos in range(levels, 4):
+            self.pretrained.add_module(f"act_postprocess{pos + 1}",
+                                       Reassemble(C, cfg.reassemble_channels[pos], pos))
 
         self.scratch = nn.Module()
         for i, rc in enumerate(cfg.reassemble_channels):
@@ -104,9 +120,10 @@ class DPT(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 3, H, W) normalized, H and W multiples of 32 → (B, H, W)."""
-        hooked, (gh, gw) = self.pretrained.model(x)
+        levels, hooked, (gh, gw) = self.pretrained.model(x)
         pre, s = self.pretrained, self.scratch
-        layers = [getattr(pre, f"act_postprocess{i + 1}")(t, gh, gw) for i, t in enumerate(hooked)]
+        layers = levels + [getattr(pre, f"act_postprocess{len(levels) + i + 1}")(t, gh, gw)
+                           for i, t in enumerate(hooked)]
         rn = [getattr(s, f"layer{i + 1}_rn")(layers[i]) for i in range(4)]
         p4 = s.refinenet4(rn[3])
         p3 = s.refinenet3(p4, rn[2])

@@ -1,10 +1,57 @@
-"""Shared building blocks (JAX ``models/layers.py``), NCHW."""
+"""Shared building blocks (JAX ``models/layers.py``), NCHW.
+
+Convs of the EfficientNet-Lite and ResNetV2 encoders pad as TF's ``SAME``
+does (``same_pads``): at stride 2 and an even size that is asymmetric, the
+extra row and column at the bottom and right, which ``nn.Conv2d(padding=k//2)``
+does not reproduce.
+"""
 
 from __future__ import annotations
+
+import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+LITE_BN_EPS = 1e-3  # the tf_efficientnet variants
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF-SAME (before, after) padding of one axis: the output has
+    ceil(size / stride) positions, and an odd total pads one more after."""
+    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, groups: int = 1):
+    """``F.conv2d`` without bias, with TF-SAME padding: symmetric pads go to
+    the conv itself, asymmetric ones to one ``F.pad`` ahead of it."""
+    (t, b), (l, r) = (same_pads(n, k, stride) for n, k in zip(x.shape[-2:], weight.shape[-2:]))
+    if (t, l) == (b, r):
+        return F.conv2d(x, weight, None, stride, (t, l), groups=groups)
+    return F.conv2d(F.pad(x, (l, r, t, b)), weight, None, stride, groups=groups)
+
+
+def max_pool3x3s2_same(x: torch.Tensor) -> torch.Tensor:
+    """3×3/2 max pool with TF-SAME padding by −inf. Along an axis that pads
+    (1, 1) this is ``padding=1``; along one that pads (0, 1) (an even size) it
+    is ``ceil_mode``'s last window, which starts inside the input and ends one
+    past it: one launch, no pad."""
+    (t, _), (l, _) = (same_pads(n, 3, 2) for n in x.shape[-2:])
+    return F.max_pool2d(x, 3, 2, (t, l), ceil_mode=True)
+
+
+class Conv2dSame(nn.Conv2d):
+    """``nn.Conv2d``'s parameters (no bias), TF-SAME padding in the forward."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 groups: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, stride, groups=groups, bias=False)
+
+    def forward(self, x):
+        return conv2d_same(x, self.weight, self.stride[0], self.groups)
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -26,3 +73,43 @@ class FrozenBatchNorm2d(nn.Module):
 
     def forward(self, x):
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+
+
+class DepthwiseSeparable(nn.Module):
+    """geffnet DepthwiseSeparableConv: dw k×k (stride) + bn + ReLU6 → pw 1×1 + bn,
+    residual when the stride is 1 and the channels match."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int, stride: int):
+        super().__init__()
+        self.residual = stride == 1 and in_features == out_features
+        self.conv_dw = Conv2dSame(in_features, in_features, kernel_size, stride, groups=in_features)
+        self.bn1 = FrozenBatchNorm2d(in_features, LITE_BN_EPS)
+        self.conv_pw = nn.Conv2d(in_features, out_features, 1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(out_features, LITE_BN_EPS)
+
+    def forward(self, x):
+        h = self.bn2(self.conv_pw(F.relu6(self.bn1(self.conv_dw(x)))))
+        return h + x if self.residual else h
+
+
+class InvertedResidual(nn.Module):
+    """geffnet InvertedResidual (MBConv without squeeze-excite, as in the Lite
+    variants): pw-expand 1×1 + bn + ReLU6 → dw k×k (stride) + bn + ReLU6 →
+    pw-project 1×1 + bn, residual when the stride is 1 and the channels match."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_size: int, stride: int, expand_ratio: int):
+        super().__init__()
+        mid = in_features * expand_ratio
+        self.residual = stride == 1 and in_features == out_features
+        self.conv_pw = nn.Conv2d(in_features, mid, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(mid, LITE_BN_EPS)
+        self.conv_dw = Conv2dSame(mid, mid, kernel_size, stride, groups=mid)
+        self.bn2 = FrozenBatchNorm2d(mid, LITE_BN_EPS)
+        self.conv_pwl = nn.Conv2d(mid, out_features, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(out_features, LITE_BN_EPS)
+
+    def forward(self, x):
+        h = F.relu6(self.bn1(self.conv_pw(x)))
+        h = F.relu6(self.bn2(self.conv_dw(h)))
+        h = self.bn3(self.conv_pwl(h))
+        return h + x if self.residual else h

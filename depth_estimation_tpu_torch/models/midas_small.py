@@ -1,8 +1,15 @@
-"""The MiDaS decoder blocks that DPT and MiDaS v2.1 share (JAX ``models/midas_small.py``).
+"""MiDaS v2.1 small ("MiDaS_small"): EfficientNet-Lite3 encoder + feature-fusion
+decoder, and the decoder blocks that DPT and MiDaS v2.1 share.
 
-Only what ``models/dpt.py`` and ``models/midas_v21.py`` import is ported so
-far: ``upsample2x``, ``ResidualConvUnit``, ``FeatureFusionBlock`` and
-``UpsampleConv3x3``. NCHW, hub module names.
+Counterpart of the JAX package's ``models/midas_small.py``, NCHW in and
+(B, H, W) out. Module names follow the hub's ``MidasNet_small`` (features 64,
+expand=True, non_negative=True): the encoder is ``pretrained.layer1-4``, the
+decoder ``scratch.*``, so the port's ``state_dict`` is the hub's (without
+``num_batches_tracked`` and the dead ``scratch.refinenet4.resConfUnit1``).
+The fusion blocks upsample with align_corners=True, the head's
+``output_conv.2`` with align_corners=False. The depthwise, pointwise and
+decoder convs run as PyTorch gives them (cuDNN, or ATen's depthwise kernel):
+none of them was ever a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -12,6 +19,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from depth_estimation_tpu_torch.models.efficientnet_lite import EfficientNetLite3
+
+FEATURES = 64  # the hub's MidasNet_small
 
 
 def upsample2x(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
@@ -66,3 +77,34 @@ class FeatureFusionBlock(nn.Module):
             h = h + self.resConfUnit1(skip)
         h = self.out_conv(self.resConfUnit2(h))
         return upsample2x(h, self.align_corners)
+
+
+class MidasSmall(nn.Module):
+    def __init__(self):
+        super().__init__()
+        f = FEATURES
+        self.pretrained = EfficientNetLite3()
+        self.scratch = nn.Module()
+        for i, c in enumerate((32, 48, 136, 384), start=1):
+            self.scratch.add_module(f"layer{i}_rn", nn.Conv2d(c, f * 2 ** (i - 1), 3, padding=1, bias=False))
+        for i in (1, 2, 3, 4):
+            self.scratch.add_module(
+                f"refinenet{i}", FeatureFusionBlock(f * 2 ** (i - 1), expand=i != 1, align_corners=True, skip=i != 4))
+        self.scratch.output_conv = nn.Sequential(
+            nn.Conv2d(f, f // 2, 3, padding=1),
+            nn.Identity(),  # the hub's Interpolate; UpsampleConv3x3 upsamples
+            UpsampleConv3x3(f // 2, 32, align_corners=False),
+            nn.ReLU(),
+            nn.Conv2d(32, 1, 1),
+            nn.ReLU(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, 3, H, W) normalized, H and W multiples of 32 → (B, H, W)."""
+        s = self.scratch
+        l1, l2, l3, l4 = self.pretrained(x)
+        p4 = s.refinenet4(s.layer4_rn(l4))
+        p3 = s.refinenet3(p4, s.layer3_rn(l3))
+        p2 = s.refinenet2(p3, s.layer2_rn(l2))
+        p1 = s.refinenet1(p2, s.layer1_rn(l1))
+        return s.output_conv(p1)[:, 0]

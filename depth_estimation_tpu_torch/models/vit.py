@@ -1,9 +1,11 @@
-"""ViT trunk for DPT (vit_large_patch16_384), NCHW input.
+"""ViT trunk for DPT (vit_large_patch16_384; vit_base_r50_s16_384 for the hybrid), NCHW input.
 
 Counterpart of the JAX package's ``models/vit.py``, with the timm/torch-hub
 module names so a hub state dict loads as it is:
 
-* patch embedding as the stride-16 conv ``patch_embed.proj``,
+* patch embedding as the stride-16 conv ``patch_embed.proj``, or for the
+  hybrid timm's ``HybridEmbed``: the ResNetV2 stem ``patch_embed.backbone``
+  and the 1×1 conv ``patch_embed.proj`` on its stride-16 output,
 * learned cls token + position embedding, resampled bilinearly for
   non-native grids (DPT ``_resize_pos_embed``),
 * pre-LN blocks (LN eps 1e-6, qkv-bias attention, exact-GELU MLP), with the
@@ -14,11 +16,12 @@ module names so a hub state dict loads as it is:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 from torch import nn
 
+from depth_estimation_tpu_torch.models.resnetv2 import STAGE_CHANNELS, ResNetV2Stem
 from depth_estimation_tpu_torch.ops.kernels.attention import multi_head_attention
 from depth_estimation_tpu_torch.ops.resize import resize_bilinear
 
@@ -82,29 +85,46 @@ class PatchEmbed(nn.Module):
         self.patch = patch
         self.proj = nn.Conv2d(in_chans, features, patch, stride=patch)
 
-    def forward(self, x):
+    def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         h, w = x.shape[-2:]
         if h % self.patch or w % self.patch:
             raise ValueError(f"input {h}x{w} not a multiple of patch {self.patch}")
-        return self.proj(x)  # (B, C, gh, gw)
+        return self.proj(x), []  # (B, C, gh, gw), no conv feature maps
+
+
+class HybridEmbed(nn.Module):
+    """timm ``HybridEmbed``: ResNetV2 stem, then a 1×1 projection of its
+    stride-16 output to the embedding. Also returns the stem's stage-1 and
+    stage-2 maps, DPT_Hybrid's pyramid levels 0 and 1."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.backbone = ResNetV2Stem()
+        self.proj = nn.Conv2d(STAGE_CHANNELS[-1], features, 1)
+
+    def forward(self, x) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        feats, levels = self.backbone(x)
+        return self.proj(feats), levels
 
 
 class ViT(nn.Module):
-    """Transformer trunk; returns the hooked token tensors (cls included)."""
+    """Transformer trunk; returns the patch embedding's conv feature maps
+    (the hybrid's, else none) and the hooked token tensors (cls included)."""
 
     def __init__(self, embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
-                 patch_size: int = 16, img_size: int = 384, hooks: Tuple[int, ...] = (5, 11, 17, 23)):
+                 patch_size: int = 16, img_size: int = 384, hooks: Tuple[int, ...] = (5, 11, 17, 23),
+                 hybrid: bool = False):
         super().__init__()
         self.hooks = tuple(hooks)
         self.orig_grid = img_size // patch_size
-        self.patch_embed = PatchEmbed(embed_dim, patch_size)
+        self.patch_embed = HybridEmbed(embed_dim) if hybrid else PatchEmbed(embed_dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.orig_grid ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads) for _ in range(depth))
 
     def forward(self, x):
-        """x: (B, 3, H, W) → ([tokens (B, 1 + gh·gw, C) per hook], (gh, gw))."""
-        patches = self.patch_embed(x)
+        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw))."""
+        patches, levels = self.patch_embed(x)
         B, C, gh, gw = patches.shape
         tokens = patches.flatten(2).transpose(1, 2)
         tokens = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
@@ -114,4 +134,4 @@ class ViT(nn.Module):
             tokens = blk(tokens)
             if i in self.hooks:
                 hooked[i] = tokens
-        return [hooked[i] for i in self.hooks], (gh, gw)
+        return levels, [hooked[i] for i in self.hooks], (gh, gw)

@@ -3,8 +3,7 @@
 Names match the reference (depth_midas.py:10-16) and the JAX package's
 registry. The port's modules keep the torch-hub state-dict key names, so a
 hub checkpoint loads as ``DepthEstimator(params=...)`` and no converter is
-needed. ``DPT_Large`` and ``MiDaS`` (v2.1 Large) are ported so far; the
-other families raise until their slice lands.
+needed.
 """
 
 from __future__ import annotations
@@ -28,20 +27,28 @@ def _make_dpt_large():
     return DPT(DPT_LARGE)
 
 
+def _make_dpt_hybrid():
+    from depth_estimation_tpu_torch.models.dpt import DPT, DPT_HYBRID
+
+    return DPT(DPT_HYBRID)
+
+
+def _make_midas_small():
+    from depth_estimation_tpu_torch.models.midas_small import MidasSmall
+
+    return MidasSmall()
+
+
 def _make_midas_v21():
     from depth_estimation_tpu_torch.models.midas_v21 import MIDAS_V21, MidasV21
 
     return MidasV21(MIDAS_V21)
 
 
-def _not_yet_ported():
-    raise NotImplementedError("not yet ported")
-
-
 _REGISTRY: Dict[str, ModelEntry] = {
     "DPT_Large": ModelEntry("DPT_Large", _make_dpt_large, DPT_PREPROCESS),
-    "DPT_Hybrid": ModelEntry("DPT_Hybrid", _not_yet_ported, DPT_PREPROCESS),
-    "MiDaS_small": ModelEntry("MiDaS_small", _not_yet_ported, SMALL_PREPROCESS),
+    "DPT_Hybrid": ModelEntry("DPT_Hybrid", _make_dpt_hybrid, DPT_PREPROCESS),
+    "MiDaS_small": ModelEntry("MiDaS_small", _make_midas_small, SMALL_PREPROCESS),
     # the reference's non-DPT branch gives "MiDaS" small_transform too
     "MiDaS": ModelEntry("MiDaS", _make_midas_v21, SMALL_PREPROCESS),
 }

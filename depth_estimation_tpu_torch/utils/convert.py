@@ -1,9 +1,9 @@
 """JAX parameter tree → the port's state dict.
 
 The port's modules keep the torch-hub key names, so these are the inverses
-of the JAX package's ``utils/convert.py::convert_dpt`` and
-``::convert_midas_v21`` (hub state dict → Flax params). They let both
-packages run on the same weights.
+of the JAX package's ``utils/convert.py::convert_dpt``,
+``::convert_midas_small`` and ``::convert_midas_v21`` (hub state dict → Flax
+params). They let both packages run on the same weights.
 
 Layout rules (inverse of the JAX converter's):
   conv kernel        (kH, kW, I, O) → (O, I, kH, kW)   (patch embed included)
@@ -12,6 +12,7 @@ Layout rules (inverse of the JAX converter's):
   grouped conv       (kH, kW, I/G, O) → (O, I/G, kH, kW)
   layer norm         scale/bias     → weight/bias
   frozen batch norm  scale/bias/mean/var → weight/bias/running_mean/running_var
+  group norm         {"gn": {scale, bias}} → weight/bias
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.models.dpt import DPT_LARGE, DPTConfig
+from depth_estimation_tpu_torch.models.efficientnet_lite import LAYER_STAGES, LITE3_STAGES
 from depth_estimation_tpu_torch.models.midas_v21 import MIDAS_V21, MidasV21Config
+from depth_estimation_tpu_torch.models.resnetv2 import STAGE_DEPTHS
 
 
 def f2t_conv(k) -> np.ndarray:
@@ -60,22 +63,46 @@ def _bn(sd: Dict, prefix: str, p: Mapping) -> None:
     sd[f"{prefix}.running_var"] = p["var"]
 
 
+def _gn(sd: Dict, prefix: str, p: Mapping) -> None:
+    _ln(sd, prefix, p["gn"])
+
+
+def _decoder(sd: Dict, p: Mapping, out_conv: bool) -> None:
+    """``scratch.*``: the ``layerN_rn`` projections, the fusion blocks (with
+    their ``out_conv`` where the family has one) and the head."""
+    for i in (1, 2, 3, 4):
+        _conv(sd, f"scratch.layer{i}_rn", p[f"layer{i}_rn"], bias=False)
+        rn = p[f"refinenet{i}"]
+        for unit in ("resConfUnit1", "resConfUnit2") if i != 4 else ("resConfUnit2",):
+            _conv(sd, f"scratch.refinenet{i}.{unit}.conv1", rn[unit]["conv1"])
+            _conv(sd, f"scratch.refinenet{i}.{unit}.conv2", rn[unit]["conv2"])
+        if out_conv:
+            _conv(sd, f"scratch.refinenet{i}.out_conv", rn["out_conv"])
+    for i in (0, 2, 4):
+        _conv(sd, f"scratch.output_conv.{i}", p[f"output_conv_{i}"])
+
+
 def _to_tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def params_from_jax(params: Mapping, cfg: DPTConfig = DPT_LARGE) -> Dict[str, torch.Tensor]:
     """Flax params of the JAX ``models.DPT`` (numpy leaves, with or without
-    the outer ``"params"`` key) → the port's DPT ``state_dict``."""
-    if cfg.hybrid:
-        raise NotImplementedError("DPT_Hybrid is not yet ported")
+    the outer ``"params"`` key) → the port's DPT ``state_dict``. For the
+    hybrid the JAX tree holds the ResNetV2 stem as ``resnet_stem`` and the 1×1
+    projection as a top-level ``patch_embed``; only pyramid positions 2 and 3
+    have readout and reassemble weights."""
     p = params.get("params", params)
     vit = p["vit"]
     sd: Dict = {
         "pretrained.model.cls_token": vit["cls_token"],
         "pretrained.model.pos_embed": vit["pos_embed"],
     }
-    _conv(sd, "pretrained.model.patch_embed.proj", vit["patch_embed"])
+    if cfg.hybrid:
+        _resnet_stem(sd, "pretrained.model.patch_embed.backbone", p["resnet_stem"])
+        _conv(sd, "pretrained.model.patch_embed.proj", p["patch_embed"])
+    else:
+        _conv(sd, "pretrained.model.patch_embed.proj", vit["patch_embed"])
     for i in range(cfg.depth):
         b, pre = vit[f"blocks_{i}"], f"pretrained.model.blocks.{i}"
         _ln(sd, f"{pre}.norm1", b["norm1"])
@@ -85,7 +112,7 @@ def params_from_jax(params: Mapping, cfg: DPTConfig = DPT_LARGE) -> Dict[str, to
         _dense(sd, f"{pre}.mlp.fc1", b["mlp"]["fc1"])
         _dense(sd, f"{pre}.mlp.fc2", b["mlp"]["fc2"])
 
-    for pos in range(4):
+    for pos in range(2 if cfg.hybrid else 0, 4):
         app = f"pretrained.act_postprocess{pos + 1}"
         _dense(sd, f"{app}.0.project.0", p[f"readout_{pos}"]["project"])
         _conv(sd, f"{app}.3", p[f"project_{pos}"])
@@ -94,16 +121,53 @@ def params_from_jax(params: Mapping, cfg: DPTConfig = DPT_LARGE) -> Dict[str, to
             sd[f"{app}.4.bias"] = p[f"resample_{pos}"]["bias"]
         elif pos == 3:
             _conv(sd, f"{app}.4", p[f"resample_{pos}"])
+    _decoder(sd, p, out_conv=True)
+    return _to_tensors(sd)
 
-    for i in (1, 2, 3, 4):
-        _conv(sd, f"scratch.layer{i}_rn", p[f"layer{i}_rn"], bias=False)
-        rn = p[f"refinenet{i}"]
-        for unit in ("resConfUnit1", "resConfUnit2") if i != 4 else ("resConfUnit2",):
-            _conv(sd, f"scratch.refinenet{i}.{unit}.conv1", rn[unit]["conv1"])
-            _conv(sd, f"scratch.refinenet{i}.{unit}.conv2", rn[unit]["conv2"])
-        _conv(sd, f"scratch.refinenet{i}.out_conv", rn["out_conv"])
-    for i in (0, 2, 4):
-        _conv(sd, f"scratch.output_conv.{i}", p[f"output_conv_{i}"])
+
+def _resnet_stem(sd: Dict, prefix: str, stem: Mapping) -> None:
+    """The JAX ``ResNetV2Stem`` tree → timm's ResNetV2 keys under ``prefix``."""
+    _conv(sd, f"{prefix}.stem.conv", stem["stem_conv"], bias=False)
+    _gn(sd, f"{prefix}.stem.norm", stem["stem_norm"])
+    for si, depth in enumerate(STAGE_DEPTHS):
+        for bi in range(depth):
+            blk, pre = stem[f"stage{si}_block{bi}"], f"{prefix}.stages.{si}.blocks.{bi}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", blk[f"conv{i}"], bias=False)
+                _gn(sd, f"{pre}.norm{i}", blk[f"norm{i}"])
+            if bi == 0:
+                _conv(sd, f"{pre}.downsample.conv", blk["downsample_conv"], bias=False)
+                _gn(sd, f"{pre}.downsample.norm", blk["downsample_norm"])
+
+
+def lite3_hub_prefix(stage: int, block: int) -> str:
+    """Hub key prefix of EfficientNet-Lite3 block ``block`` of geffnet stage
+    ``stage``: ``pretrained.layer{L}.{slot}.{block}``, where layer 1's stages
+    follow the stem's three modules (``models/efficientnet_lite.py``)."""
+    for li, stages in enumerate(LAYER_STAGES, start=1):
+        if stage in stages:
+            slot = stages.index(stage) + (3 if li == 1 else 0)
+            return f"pretrained.layer{li}.{slot}.{block}"
+    raise ValueError(f"no EfficientNet-Lite3 stage {stage}")
+
+
+def params_from_jax_midas_small(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.MidasSmall`` (numpy leaves, with or
+    without the outer ``"params"`` key) → the port's MidasSmall ``state_dict``."""
+    p = params.get("params", params)
+    enc = p["pretrained"]
+    sd: Dict = {}
+    _conv(sd, "pretrained.layer1.0", enc["conv_stem"], bias=False)
+    _bn(sd, "pretrained.layer1.1", enc["bn1"])
+    for si, (btype, reps, *_) in enumerate(LITE3_STAGES):
+        units = (("conv_dw", "bn1"), ("conv_pw", "bn2")) if btype == "ds" else (
+            ("conv_pw", "bn1"), ("conv_dw", "bn2"), ("conv_pwl", "bn3"))
+        for bi in range(reps):
+            blk, pre = enc[f"blocks_{si}_{bi}"], lite3_hub_prefix(si, bi)
+            for conv, bn in units:
+                _conv(sd, f"{pre}.{conv}", blk[conv], bias=False)
+                _bn(sd, f"{pre}.{bn}", blk[bn])
+    _decoder(sd, p, out_conv=True)
     return _to_tensors(sd)
 
 
@@ -130,12 +194,5 @@ def params_from_jax_midas_v21(params: Mapping, cfg: MidasV21Config = MIDAS_V21) 
             if bi == 0:
                 _conv(sd, f"{pre}.downsample.0", blk["downsample_conv"], bias=False)
                 _bn(sd, f"{pre}.downsample.1", blk["downsample_bn"])
-    for i in (1, 2, 3, 4):
-        _conv(sd, f"scratch.layer{i}_rn", p[f"layer{i}_rn"], bias=False)
-        rn = p[f"refinenet{i}"]
-        for unit in ("resConfUnit1", "resConfUnit2") if i != 4 else ("resConfUnit2",):
-            _conv(sd, f"scratch.refinenet{i}.{unit}.conv1", rn[unit]["conv1"])
-            _conv(sd, f"scratch.refinenet{i}.{unit}.conv2", rn[unit]["conv2"])
-    for i in (0, 2, 4):
-        _conv(sd, f"scratch.output_conv.{i}", p[f"output_conv_{i}"])
+    _decoder(sd, p, out_conv=False)
     return _to_tensors(sd)

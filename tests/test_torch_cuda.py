@@ -102,6 +102,20 @@ def test_attention_f32_kernel_refuses_unaligned(cuda, gen):
     assert tatt.multi_head_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_attention_kernel_at_vit_b_heads(cuda, gen, b, dtype, tol):
+    """DPT_Hybrid's ViT-B: 12 heads of 64 over a fused qkv of 3 × 768, at
+    384×512 (769 tokens), per frame and at the stream's microbatch of 4."""
+    qkv = torch.randn((b, 769, 3, 12, 64), generator=gen, device=cuda).to(dtype).permute(2, 0, 3, 1, 4)
+    before = tatt.multi_head_attention.launches
+    got = tatt.multi_head_attention(qkv[0], qkv[1], qkv[2])
+    assert tatt.multi_head_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, 12, 769, 64)
+    ref = tatt.attention_plain(qkv[0], qkv[1], qkv[2])
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
+
+
 def test_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -381,3 +395,27 @@ def test_grouped_conv_kernel_refuses(cuda, gen):
     with pytest.raises(ValueError, match="weight on"):
         tgc.grouped_conv3x3(x, k.cpu(), 8)
     assert tgc.grouped_conv3x3.launches == before
+
+
+@pytest.mark.parametrize("name", ["MiDaS_small", "DPT_Hybrid"])
+def test_estimator_on_the_card_holds_the_cpu(cuda, name):
+    """A full-width family on the card (its kernels) against the same weights
+    on the CPU (the plain versions) at 240×320, within the package's accuracy
+    gate; K4 is not on either family's path."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
+
+    est = DepthEstimator(name, seed=0, verbose=False)
+    assert est.device.type == "cuda"
+    cpu = DepthEstimator(name, params={k: v.cpu() for k, v in est.model.state_dict().items()}, verbose=False,
+                         device="cpu")
+    frame = np.random.default_rng(0).integers(0, 256, (240, 320, 3), np.uint8)
+    kernels.reset_launch_counts()
+    got = est.predict(frame)
+    counts = kernels.launch_counts()
+    assert counts == {"multi_head_attention": 12 if name == "DPT_Hybrid" else 0, "fused_preprocess": 1,
+                      "resize_planes": 1, "grouped_conv3x3": 0}, counts
+    want = cpu.predict(frame)
+    scale = float(np.abs(want).max())
+    assert np.isfinite(got).all() and scale > 0
+    assert float(np.abs(got - want).max()) / scale < 1e-3

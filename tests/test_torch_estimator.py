@@ -172,9 +172,6 @@ def test_random_init_warns_and_is_seeded(estimators):
 def test_model_type_errors():
     with pytest.raises(ValueError, match="unknown model_type"):
         DepthEstimator("NoSuchModel", verbose=False, device="cpu")
-    for name in ("DPT_Hybrid", "MiDaS_small"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            DepthEstimator(name, verbose=False, device="cpu")
 
 
 def test_synthetic_source_byte_identical_to_jax():

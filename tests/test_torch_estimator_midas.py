@@ -123,10 +123,17 @@ def _hub_dicts():
 
 def _with_unread_keys(sd):
     """What a hub checkpoint adds: BatchNorm step counters (one per norm
-    layer, as torch.nn.BatchNorm2d saves them) and refinenet4's dead first unit."""
+    layer, as torch.nn.BatchNorm2d saves them), refinenet4's dead first unit
+    and, in a DPT, the timm ViT's final LayerNorm and 1000-class head."""
     f = sd["scratch.refinenet4.resConfUnit2.conv1.weight"].shape[0]
     extra = {k[:-len("running_var")] + "num_batches_tracked": np.array(7) for k in sd if k.endswith("running_var")}
     extra["pretrained.model.norm.num_batches_tracked"] = np.array(0)
+    if "pretrained.model.cls_token" in sd:
+        c = sd["pretrained.model.cls_token"].shape[-1]
+        extra.update({"pretrained.model.norm.weight": np.ones(c, np.float32),
+                      "pretrained.model.norm.bias": np.zeros(c, np.float32),
+                      "pretrained.model.head.weight": np.ones((1000, c), np.float32),
+                      "pretrained.model.head.bias": np.ones(1000, np.float32)})
     for conv in ("conv1", "conv2"):
         extra[f"scratch.refinenet4.resConfUnit1.{conv}.weight"] = np.ones((f, f, 3, 3), np.float32)
         extra[f"scratch.refinenet4.resConfUnit1.{conv}.bias"] = np.ones(f, np.float32)
