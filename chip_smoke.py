@@ -25,7 +25,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (bf16 mma on the tensor cores; bound at the bf16 rate), each with its
    tiling printed, at batch 1, and checked in both at batch 4, the microbatch;
    K2 (preprocess) and K3 (resize) are checked and timed at both families'
-   shapes (480×640 u8 → 384×512 or 192×256, and back to 480×640), each with
+   shapes (480×640 u8 → 384×512 or 192×256, and back to 480×640), and K2's
+   linear route at the detectors' inputs (→ 128×128, mean = std = 0.5, and
+   → 256×256, mean 0, std 1; atol 1e-5), each with
    its tiling printed, at batch 1, and checked at batch 4; K3 also on its u8
    route (the stream's wrap-around cast fused in) against ``wraparound_u8``
    of the plain version, bytes differing only where the f32 map lies within
@@ -65,10 +67,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    rounding block by block (the whole bf16 map lies about 0.2 of the f32
    map's range from it). So hybrid_bf16_tail also runs the bf16 ViT-B and
    decoder on the f32 stem's features, which must land within 0.05.
+11. fused_stream, fused_hold, fused_profile — the fused iris/pose + depth
+   path (``runtime/fused.py``, ``FusedVidStream``) on the DPT_Large of phase
+   4 with ``PersonDetector``'s random nets from seed 0, BlazeFace's heads
+   rescaled so that it detects (``detector_weights``): the stream as in
+   phase 4 (launches a program: K1 24, K2 3, K3 1, K4 0, plus a K2 for each
+   staged ``findBody``; the frames of the iris and the body route printed);
+   the hold on a hit and a miss at 240×320 against the plain paths on the
+   CPU (depth 1e-3, scores 1e-4, and where the top two kept scores lie 1e-4
+   apart or more, boxes 1e-4, the mesh by the ±1 rule, circles, pose); the
+   profile at batch 1 and 4, with each branch's device time alone.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
-path's per-frame stream, and under ``per_path`` on each family's; K2's and
-K3's for each network input under ``per_shape``),
+path's per-frame stream, and under ``per_path`` on each family's and the
+fused path's; K2's and K3's for each network input under ``per_shape``, with
+K2's linear route's shapes),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
 phase. It imports nothing of JAX or of the JAX package.
@@ -168,22 +181,28 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
     return row
 
 
-def check_preprocess(frames, net_hw, cfg, timed):
+def check_preprocess(frames, net_hw, cfg, timed, method="cubic"):
+    """K2 against its plain version at ``atol`` 3e-5 (cubic) or 1e-5 (the
+    linear route); its bound counts the route's taps: a 2-D cubic output
+    value is 16 multiply-adds of the frame, a linear one 4."""
     from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, preprocess_plain, tiling
 
-    got = fused_preprocess(frames, net_hw, cfg.mean, cfg.std)
-    ref = preprocess_plain(frames, net_hw, cfg.mean, cfg.std)
+    atol, taps = (3e-5, 16) if method == "cubic" else (1e-5, 4)
+    got = fused_preprocess(frames, net_hw, cfg.mean, cfg.std, method=method)
+    ref = preprocess_plain(frames, net_hw, cfg.mean, cfg.std, method=method)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
-    check(got.shape == ref.shape and err <= 3e-5, f"preprocess {tuple(got.shape)}: max abs err {err} over 3e-5")
-    row = {"in": list(frames.shape), "out": list(got.shape), "max_abs_err": err, "atol": 3e-5,
-           "tiling": tiling(tuple(frames.shape[1:3]), tuple(net_hw), frames.shape[0], sm_count(), "preprocess")}
+    check(got.shape == ref.shape and err <= atol,
+          f"preprocess {method} {tuple(got.shape)}: max abs err {err} over {atol}")
+    row = {"in": list(frames.shape), "out": list(got.shape), "method": method, "max_abs_err": err, "atol": atol,
+           "tiling": tiling(tuple(frames.shape[1:3]), tuple(net_hw), frames.shape[0], sm_count(), "preprocess",
+                            method)}
     if timed:
         h_out, w_out = net_hw
         nbytes = frames.numel() + got.numel() * 4 + (h_out + w_out) * 4 * 8  # frame, output, tap tables
-        bnd, by = bound_ms(nbytes, got.numel() * (2 * 16 + 2))
-        row.update(ms=time_ms(lambda: fused_preprocess(frames, net_hw, cfg.mean, cfg.std)),
-                   plain_ms=time_ms(lambda: preprocess_plain(frames, net_hw, cfg.mean, cfg.std)),
+        bnd, by = bound_ms(nbytes, got.numel() * (2 * taps + 2))
+        row.update(ms=time_ms(lambda: fused_preprocess(frames, net_hw, cfg.mean, cfg.std, method=method)),
+                   plain_ms=time_ms(lambda: preprocess_plain(frames, net_hw, cfg.mean, cfg.std, method=method)),
                    library_ms=None, bound_ms=bnd, bound_by=by)
     emit("kernel", name="preprocess", **row)
     return row
@@ -415,11 +434,228 @@ def bf16_tail(est, est16, frame, bound, phase):
     emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel, bound=bound)
 
 
+# -- the fused iris/pose + depth path ----------------------------------------------
+
+CARD = (505, 504, 675, 501)
+FUSED_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
+DETECTOR_INPUTS = {"blazeface_128x128": ((128, 128), (0.5,) * 3, (0.5,) * 3),
+                   "blazepose_256x256": ((256, 256), (0.0,) * 3, (1.0,) * 3)}
+
+
+def detector_weights(seed=0):
+    """The state dicts of ``PersonDetector(seed=seed)``'s random nets, with
+    BlazeFace's heads rescaled so that random weights make a working
+    detector: classifiers ×0.05 (scores near 0.75 instead of saturated at 1,
+    so kept scores do not tie), box regressors ×0.5 with widths and heights
+    biased to 0.2 of the frame (boxes with an area, face crops of some 20-30%
+    of the frame instead of 1×1)."""
+    import warnings
+
+    from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
+    from depth_estimation_tpu_torch.geometry.face import FaceDet
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        det = PersonDetector(FaceDet(20, CARD), seed=seed, device="cpu")
+    sd = {key: {k: v.clone() for k, v in net.state_dict().items()}
+          for key, net in (("blazeface", det._face_det), ("facemesh", det._mesh), ("blazepose", det._pose))}
+    face = sd["blazeface"]
+    for head in ("classifier_16", "classifier_8"):
+        face[f"{head}.weight"] *= 0.05
+    for head in ("regressor_16", "regressor_8"):
+        face[f"{head}.weight"] *= 0.5
+        face[f"{head}.bias"].view(-1, 16)[:, 2:4] += 0.2 * 128
+    return sd
+
+
+def make_detector(weights, thresh=0.2, device="cuda"):
+    from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
+    from depth_estimation_tpu_torch.geometry.face import FaceDet
+
+    return PersonDetector(FaceDet(20, CARD), minDetectionCon=thresh, params=weights, device=device)
+
+
+def run_fused_stream(est, weights, out_path, microbatch, phase="fused_stream", **extra):
+    """``FusedVidStream`` over ``synthetic:16x480x640`` after one untimed
+    program of its batch (set-up): the kernels' launches must be
+    FUSED_PER_PROGRAM a program, plus one K2 launch for each staged
+    ``findBody`` (a hit whose iris fit is degenerate goes the body way by the
+    staged call, as in the JAX loop)."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.stream import FusedVidStream
+
+    det = make_detector(weights)
+    vs = FusedVidStream(est, det, det.face, f"synthetic:{FRAMES}x480x640", out_path, verbose=False,
+                        microbatch=microbatch)
+    vs._runner.batched(np.zeros((microbatch, 480, 640, 3), np.uint8))  # set-up (cuDNN plans) for this batch
+    staged = []
+    find_body = det.findBody
+    det.findBody = lambda img: (staged.append(1), find_body(img))[1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    vs.stream()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    programs = math.ceil(FRAMES / microbatch)
+    want = {name: n * programs for name, n in FUSED_PER_PROGRAM.items()}
+    want["fused_preprocess"] += len(staged)
+    check(counts == want, f"{phase}: launch counts {counts} != {want} (microbatch={microbatch})")
+    check(os.path.getsize(out_path) > 0, f"{out_path} is empty")
+    s = vs.timer.summary()["depth"]
+    check(s["frames"] == FRAMES and sum(vs.route_counts.values()) == FRAMES,
+          f"{phase}: {s['frames']} frames, routes {vs.route_counts}")
+    check(np.isfinite(det.face.ri_depths).all() and len(det.face.abs_depths) >= FRAMES,
+          f"{phase}: depth samples {det.face.ri_depths}")
+    emit(phase, model=est.model_type, microbatch=microbatch, frames=FRAMES, p50_ms=s["p50_ms"], p90_ms=s["p90_ms"],
+         fps_completion=s["fps_completion"], ms_per_frame=1e3 / s["fps_completion"], wall_fps=FRAMES / wall,
+         launches=counts, launches_per_program=FUSED_PER_PROGRAM, staged_find_body=len(staged),
+         routes=vs.route_counts, avi_bytes=os.path.getsize(out_path), **extra)
+    return counts, s["fps_completion"]
+
+
+def fused_hold(est, cpu_est, weights, thresh, case, phase="fused_hold"):
+    """The fused program on the card against the same weights through the
+    plain paths on the CPU, on a 240×320 frame: depth within 1e-3 max
+    abs-rel, valid equal, scores within 1e-4; where the reference's top two
+    kept scores lie 1e-4 apart or more, also boxes within 1e-4, the mesh
+    (ints equal, or ±1 where the CPU's float landmark lies within 1e-3 of an
+    integer), circles and pose landmarks; where they lie closer, the margin
+    is printed and only depth and scores are held."""
+    from depth_estimation_tpu_torch.device import full_f32
+    from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner, crop_box, mesh_points
+    from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+
+    _, frame = SyntheticSource(1, 240, 320).read()
+    cpu_det = make_detector(weights, thresh, "cpu")
+    gpu = {k: v.cpu().numpy() for k, v in FusedFrameRunner(est, make_detector(weights, thresh))(frame).items()}
+    t0 = time.perf_counter()
+    cpu = {k: v.numpy() for k, v in FusedFrameRunner(cpu_est, cpu_det)(frame).items()}
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(cpu["depth"]).max())
+    rel = float(np.abs(gpu["depth"] - cpu["depth"]).max()) / scale
+    check(np.isfinite(gpu["depth"]).all() and scale > 0 and rel < 1e-3, f"{phase} {case}: depth max abs-rel {rel}")
+    check((gpu["valid"] == cpu["valid"]).all() and bool(cpu["valid"][0]) == (case == "hit"),
+          f"{phase} {case}: valid {gpu['valid']} vs {cpu['valid']}")
+    score_err = float(np.abs(gpu["scores"] - cpu["scores"]).max())
+    check(score_err <= 1e-4, f"{phase} {case}: scores differ by {score_err}")
+    kept = cpu["scores"][cpu["valid"]]
+    margin = float(kept[0] - kept[1]) if len(kept) > 1 else None
+    row = {"case": case, "max_abs_rel": rel, "depth_max": scale, "score_max_abs_err": score_err,
+           "top_two_margin": margin, "valid": int(cpu["valid"].sum()), "cpu_seconds": cpu_s}
+    if margin is not None and margin < 1e-4:
+        row["held"] = "depth and scores only: the top two kept scores lie within 1e-4"
+    else:
+        box_err = float(np.abs(gpu["boxes"] - cpu["boxes"]).max())
+        check(box_err <= 1e-4, f"{phase} {case}: boxes differ by {box_err}")
+        with torch.inference_mode(), full_f32():
+            pts, _ = mesh_points(cpu_det._mesh, torch.from_numpy(frame[None]),
+                                 *crop_box(torch.from_numpy(cpu["boxes"][None]), 240, 320))
+        near = np.abs(pts[0].numpy() - np.round(pts[0].numpy())) < 1e-3
+        differ = gpu["mesh"] != cpu["mesh"] if case == "hit" else np.zeros_like(near)
+        check(not (differ & ~near).any() and np.abs(gpu["mesh"] - cpu["mesh"]).max() <= 1,
+              f"{phase} {case}: {int((differ & ~near).sum())} mesh ints differ away from an integer")
+        iris_moved = bool(differ.any())
+        circle_err = max(float(np.abs(gpu[k] - cpu[k]).max()) for k in ("l_center", "l_radius", "r_center",
+                                                                         "r_radius"))
+        check(circle_err <= (1.0 + 1e-3 if iris_moved else 1e-3), f"{phase} {case}: circles differ by {circle_err}")
+        pose_scale = float(np.abs(cpu["pose_lm"]).max()) or 1.0
+        pose_rel = float(np.abs(gpu["pose_lm"] - cpu["pose_lm"]).max()) / pose_scale
+        check(pose_rel < 1e-3, f"{phase} {case}: pose landmarks max abs-rel {pose_rel}")
+        row.update(held="depth, scores, boxes, mesh, circles, pose", box_max_abs_err=box_err,
+                   mesh_moved_by_rule=int(differ.sum()), circle_max_abs_err=circle_err, pose_max_abs_rel=pose_rel,
+                   l_radius=float(cpu["l_radius"]), r_radius=float(cpu["r_radius"]))
+    emit(phase, model=est.model_type, src_hw=[240, 320], **row)
+
+
+def branch_times(fn, n=8):
+    """One part of a program alone: host ms a call (``n`` calls, then a sync),
+    and its kernels' device time and count a call (torch.profiler)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()]
+    return {"host_ms": host_ms, "busy_ms": sum(r[1] for r in rows) / n / 1e3,
+            "kernels": sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n}
+
+
+def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
+    """Fused programs of ``batch`` copies of ``frame``, one at a time: host
+    ms a program, device busy ms and idle share, device kernels and
+    ``cudaLaunchKernel`` calls a program, the largest kernels; then each
+    part alone (``branch_times``): depth, BlazeFace with NMS, the mesh branch
+    (crop, FaceMesh+iris, circles) and the pose branch, the last two being
+    the branches that JAX's ``lax.cond`` chooses between, both of which run
+    here."""
+    from depth_estimation_tpu_torch.detect.circle import min_enclosing_circle_torch
+    from depth_estimation_tpu_torch.device import full_f32
+    from depth_estimation_tpu_torch.runtime.fused import (FusedFrameRunner, blazeface_branch, crop_box, mesh_points,
+                                                          pose_branch, to_int32)
+
+    det = make_detector(weights)
+    runner = FusedFrameRunner(est, det)
+    imgs = np.stack([frame] * batch)
+    for _ in range(2):
+        runner.batched(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        runner.batched(imgs)
+    torch.cuda.synchronize()
+    program_ms = (time.perf_counter() - t0) / n * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            runner.batched(imgs)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()), key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / n / 1e3
+    kernels_run = sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as cprof:
+        for _ in range(n):
+            runner.batched(imgs)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in cprof.key_averages() if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                                      "cudaLaunchKernelExC")) / n
+    frames = torch.from_numpy(imgs).cuda()
+    with torch.inference_mode(), est._numerics(), full_f32():
+        boxes = blazeface_branch(det._face_det, det._face_anchors, det.minDetectionCon, frames)[0]
+        box = crop_box(boxes, *frame.shape[:2])
+        iris_idx = torch.tensor([det.LEFT_IRIS, det.RIGHT_IRIS], device="cuda")
+
+        def mesh_branch():
+            mesh = to_int32(mesh_points(det._mesh, frames, *box)[0])
+            return min_enclosing_circle_torch(mesh[:, iris_idx].float())
+
+        branches = {"depth": lambda: est.depth_branch(frames),
+                    "blazeface_nms": lambda: blazeface_branch(det._face_det, det._face_anchors, det.minDetectionCon,
+                                                              frames),
+                    "mesh": mesh_branch, "pose": lambda: pose_branch(det._pose, frames)}
+        branch = {name: branch_times(fn, n) for name, fn in branches.items()}
+    untaken = max(branch["mesh"]["busy_ms"], branch["pose"]["busy_ms"])
+    emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), batch=batch, program_ms=program_ms,
+         frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
+         device_idle_share=max(0.0, 1 - busy_ms / program_ms), device_kernels_per_program=kernels_run,
+         cuda_launch_calls_per_program=launches, branches=branch,
+         untaken_branch_busy_share_max=untaken / busy_ms,
+         top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
+              for k, t, c in rows[:10]])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 1
-    from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS
+    from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS, PreprocessConfig
     from depth_estimation_tpu_torch.device import full_f32
     from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.ops.kernels import build
@@ -470,6 +706,12 @@ def main():
         for hw, cfg in resize_shapes.values():
             check_preprocess(frames, hw, cfg, timed=False)
             check_resize(gen, hw, (480, 640), batch=MICROBATCH, timed=False)
+        # K2's linear route at the fused path's detector inputs: timed at batch 1, checked at the microbatch
+        pre_linear = {}
+        for key, (hw, mean, std) in DETECTOR_INPUTS.items():
+            cfg = PreprocessConfig(mean=mean, std=std)
+            pre_linear[key] = check_preprocess(frames[:1], hw, cfg, timed=True, method="linear")
+            check_preprocess(frames, hw, cfg, timed=False, method="linear")
         # K4 is timed at every conv2 shape in both types; the table's row is layer 3, with 22 of its 30
         # launches a frame
         gconv = {layer: check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=True)
@@ -490,6 +732,19 @@ def main():
     frame = SyntheticSource(1, 480, 640).read()[1]
     profile_frames(est, frame)
     profile_frames(bf16_mode(est, frame, 0.05, dpt_per_program), frame, "bf16_profile")
+
+    # the fused iris/pose + depth path on the same DPT_Large
+    weights = detector_weights(seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_launches, fps = run_fused_stream(est, weights, os.path.join(tmp, "fused.avi"), 1)
+        run_fused_stream(est, weights, os.path.join(tmp, "fused_mb.avi"), MICROBATCH, per_frame_fps=fps)
+    cpu_est = DepthEstimator("DPT_Large", params={k: v.cpu() for k, v in est.model.state_dict().items()},
+                             device="cpu", verbose=False)
+    fused_hold(est, cpu_est, weights, 0.0, "hit")
+    fused_hold(est, cpu_est, weights, 2.0, "miss")
+    del cpu_est
+    profile_fused(est, weights, frame)
+    profile_fused(est, weights, frame, batch=MICROBATCH)
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
     midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
@@ -525,7 +780,7 @@ def main():
 
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
-                "dpt_hybrid": family_launches["DPT_Hybrid"]}
+                "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -535,7 +790,7 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
-              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches, ("dpt_large", "dpt_hybrid"),
+              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches, ("dpt_large", "dpt_hybrid", "fused_iris"),
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
@@ -544,8 +799,11 @@ def main():
                                                     "library_kernel", "bound_ms", "bound_by", "fma_bound_ms")}),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
-              per_shape={key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
-                         for key in resize_shapes}),
+              per_shape={**{key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
+                            for key in resize_shapes},
+                         # the linear route: one launch of each a fused program (per_path.fused_iris: 3 a frame)
+                         **{key: {"method": "linear", **{k: pre_linear[key][k] for k in K23_KEYS}}
+                            for key in DETECTOR_INPUTS}}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches, per_path,
               **{k: rsz["dpt_384x512"][k] for k in K3_U8_KEYS},

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32, resolve_device
-from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
+from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d, PReLU
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.registry import get_entry
@@ -41,15 +41,17 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Deterministic random weights for ``model`` from ``seed``, made on the
     CPU so that every device gets the same ones. Pipeline-valid and
     numerically meaningless: weights ~ N(0, 1/fan_in), biases ~ N(0, 0.02²),
-    LayerNorm, GroupNorm and frozen batch norm at identity, embeddings ~
-    N(0, 0.02²). Covers buffers too, since the model is built on the meta
-    device."""
+    LayerNorm, GroupNorm and frozen batch norm at identity, PReLU slopes at
+    0.25 (the detector nets'), embeddings ~ N(0, 0.02²). Covers buffers too,
+    since the model is built on the meta device."""
     g = torch.Generator().manual_seed(seed)
     sd = {}
     for prefix, mod in model.named_modules():
         for name, p in [*mod.named_parameters(recurse=False), *mod.named_buffers(recurse=False)]:
             if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm2d)):
                 v = torch.ones(p.shape) if name in ("weight", "running_var") else torch.zeros(p.shape)
+            elif isinstance(mod, PReLU):
+                v = torch.full(p.shape, 0.25)
             elif name == "weight" and p.dim() >= 2:
                 fan_in = p.shape[0] if isinstance(mod, nn.ConvTranspose2d) else p[0].numel()
                 v = torch.randn(p.shape, generator=g) / math.sqrt(fan_in)
@@ -130,13 +132,18 @@ class DepthEstimator:
         with output='u8' the reference's wrap-around uint8 cast of it
         (depth_midas.py:83), cast by K3 itself, so the stream fetches a quarter
         of the bytes."""
+        with torch.inference_mode(), self._numerics():
+            return self.depth_branch(imgs, output)
+
+    def depth_branch(self, imgs: torch.Tensor, output: str = "f32") -> torch.Tensor:
+        """``_run``'s body, for a caller that has entered inference mode and
+        ``_numerics()`` itself (the fused frame program): K2, the network, K3."""
         in_hw = (int(imgs.shape[1]), int(imgs.shape[2]))
         cfg = self.preprocess_cfg
         net_hw = compute_resize_shape(*in_hw, cfg)
-        with torch.inference_mode(), self._numerics():
-            x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=True)
-            pred = self.model(x.to(self.dtype)).float()  # (B, h, w)
-            return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
+        x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=True)
+        pred = self.model(x.to(self.dtype)).float()  # (B, h, w)
+        return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
 
     # -- public API -----------------------------------------------------------
 

@@ -170,12 +170,12 @@ def _check_cuda(x: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> No
 # -- K2: u8 frame → normalized network input ---------------------------------
 
 def preprocess_plain(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence[float],
-                     std: Sequence[float], bgr_to_rgb: bool = True) -> torch.Tensor:
-    """u8 (B, H, W, 3) → f32 (B, 3, H_out, W_out): RGB, /255, cubic resize,
-    (x - mean_c) / std_c."""
+                     std: Sequence[float], bgr_to_rgb: bool = True, method: str = "cubic") -> torch.Tensor:
+    """u8 (B, H, W, 3) → f32 (B, 3, H_out, W_out): RGB, /255, cubic (or
+    linear) resize, (x - mean_c) / std_c."""
     x = imgs.flip(-1) if bgr_to_rgb else imgs
     x = x.to(torch.float32) / 255.0
-    x = resize2d(x, out_hw, method="cubic", align_corners=False)
+    x = resize2d(x, out_hw, method=method, align_corners=False)
     mean_v = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std_v = torch.tensor(std, dtype=torch.float32, device=x.device)
     return ((x - mean_v) / std_v).permute(0, 3, 1, 2).contiguous()
@@ -190,10 +190,14 @@ def normalize_affine(mean: Sequence[float], std: Sequence[float]) -> Tuple[list,
 
 
 def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence[float],
-                     std: Sequence[float], bgr_to_rgb: bool = True) -> torch.Tensor:
-    """``preprocess_plain`` for a CPU tensor; one K2 launch for a CUDA tensor."""
+                     std: Sequence[float], bgr_to_rgb: bool = True, method: str = "cubic") -> torch.Tensor:
+    """``preprocess_plain`` for a CPU tensor; one K2 launch for a CUDA tensor.
+    ``method="linear"`` is the detectors' input (JAX ``pallas_preprocess(...,
+    method="linear")``): 2 taps a row, padded to 4 with zero weights."""
     if imgs.device.type == "cpu":
-        return preprocess_plain(imgs, out_hw, mean, std, bgr_to_rgb)
+        return preprocess_plain(imgs, out_hw, mean, std, bgr_to_rgb, method)
+    if method not in ("cubic", "linear"):
+        raise ValueError(f"preprocess kernel takes cubic or linear, got {method!r}")
     _check_cuda(imgs, torch.uint8, 4, "preprocess")
     b, h, w, c = imgs.shape
     if c != 3:
@@ -204,7 +208,7 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
     with torch.cuda.device(imgs.device):
         err = _lib().preprocess_u8(
             imgs.data_ptr(), out.data_ptr(), b, h, w, h_out, w_out, int(bgr_to_rgb),
-            *_launch_args(imgs, (h, w), (h_out, w_out), "preprocess", "cubic", False), *scale, *bias,
+            *_launch_args(imgs, (h, w), (h_out, w_out), "preprocess", method, False), *scale, *bias,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "preprocess kernel launch")
     fused_preprocess.launches += 1

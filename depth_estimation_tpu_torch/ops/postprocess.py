@@ -1,6 +1,13 @@
 """Depth-map → video-frame postprocessing with the reference's uint8
-wrap-around (depth_midas.py:81-85: a raw ``astype(np.uint8)`` cast, no
-normalization, so float depth values alias mod 256)."""
+wrap-around (JAX ``ops/postprocess.py``).
+
+* ``write_output`` (depth_midas.py:81-85): a raw ``astype(np.uint8)`` cast,
+  no normalization, so float depth values alias mod 256;
+* ``to_video_frame`` (midas_mediapipe.py:141-150): that cast, then ``*= 5``
+  and ``+= 10`` in uint8 arithmetic (wrapping), then gray → 3 channels;
+  ``to_video_frame_u8`` is its device form, less the 3-channel merge;
+* ``side_by_side`` (midas_mediapipe.py:152-155): two half-size frames.
+"""
 
 from __future__ import annotations
 
@@ -31,3 +38,32 @@ def depth_to_gray_u8(depth: np.ndarray, faithful: bool = True) -> np.ndarray:
 def merge_gray3(gray_u8: np.ndarray) -> np.ndarray:
     """gray HxW → HxWx3 (cv2.merge([g,g,g]) equivalent, depth_midas.py:84)."""
     return np.repeat(gray_u8[..., None], 3, axis=-1)
+
+
+def to_video_frame_u8(depth: torch.Tensor) -> torch.Tensor:
+    """``to_video_frame`` (faithful) on the device, without the 3-channel
+    merge: (…, H, W) float → uint8, ``*5 + 10`` in uint8 arithmetic, which
+    wraps in torch as in numpy (JAX ``to_video_frame_u8_jax``)."""
+    return wraparound_u8(depth) * 5 + 10
+
+
+def to_video_frame(depth: np.ndarray, faithful: bool = True) -> np.ndarray:
+    """midas_mediapipe.py:141-150 on the host (uint8 wrap-around kept)."""
+    out = depth_to_gray_u8(depth, faithful=faithful)
+    if faithful:
+        out = out.copy()
+        out *= 5  # uint8 arithmetic — wraps, as in the reference
+        out += 10
+    else:
+        out = np.clip(out.astype(np.int32) * 5 + 10, 0, 255).astype(np.uint8)
+    return merge_gray3(out)
+
+
+def side_by_side(img1: np.ndarray, img2: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """Two frames at half of (out_w, out_h), side by side
+    (midas_mediapipe.py:152-155; cv2.resize's default bilinear)."""
+    import cv2
+
+    f1 = cv2.resize(img1, (out_w // 2, out_h // 2))
+    f2 = cv2.resize(img2, (out_w // 2, out_h // 2))
+    return np.hstack((f1, f2))

@@ -1,4 +1,6 @@
-"""Depth-only streaming loop: ``VidStream`` (reference: depth_midas.py:38-85).
+"""Streaming loops: the depth-only ``VidStream`` (reference:
+depth_midas.py:38-85) and the fused iris/pose + depth ``FusedVidStream``
+(reference: midas_mediapipe.py:11-159; at the end of this module).
 
 Read frame → depth frame program on the device (with the reference's raw
 uint8 wrap-around cast applied there) → gray→3ch → MJPG write. A copy of the
@@ -21,11 +23,12 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from statistics import median
 
 import numpy as np
 import torch
 
-from depth_estimation_tpu_torch.ops.postprocess import merge_gray3
+from depth_estimation_tpu_torch.ops.postprocess import merge_gray3, side_by_side
 from depth_estimation_tpu_torch.runtime.logging_utils import JsonLogger
 from depth_estimation_tpu_torch.runtime.timing import StageTimer
 from depth_estimation_tpu_torch.runtime.video import (
@@ -187,3 +190,290 @@ class VidStream:
     # reference alias
     def write_output(self):
         self._write_gray(_Fetch(self.estimator.predict_device_u8(self.frame)[None]).result()[0])
+
+
+# -- the fused iris/pose + depth loop ------------------------------------------
+
+# A frame's small outputs of the fused program, packed into one int32 row
+# (float32 fields bit-cast), in this order: (name, shape, dtype)
+_PACKED = (("boxes", (16, 16), np.float32), ("scores", (16,), np.float32), ("valid", (16,), np.bool_),
+           ("mesh", (478, 2), np.int32), ("mesh_score", (), np.float32), ("l_center", (2,), np.float32),
+           ("l_radius", (), np.float32), ("r_center", (2,), np.float32), ("r_radius", (), np.float32),
+           ("pose_lm", (33, 5), np.float32), ("pose_score", (), np.float32), ("iris_sample", (), np.float32),
+           ("fallback_sample", (), np.float32), ("ears_sample", (), np.float32))
+
+
+def _pack(out) -> torch.Tensor:
+    """The ``_PACKED`` fields of a batch's outputs → (B, L) int32."""
+    b = out["valid"].shape[0]
+    parts = []
+    for name, _shape, dtype in _PACKED:
+        t = out[name].reshape(b, -1)
+        parts.append(t.contiguous().view(torch.int32) if dtype == np.float32 else t.to(torch.int32))
+    return torch.cat(parts, dim=1)
+
+
+def _unpack(row: np.ndarray) -> dict:
+    """One frame's (L,) int32 row → its fields as numpy values."""
+    out, i = {}, 0
+    for name, shape, dtype in _PACKED:
+        n = int(np.prod(shape))
+        v = row[i:i + n]
+        v = v.view(np.float32) if dtype == np.float32 else v.astype(dtype)
+        out[name] = v.reshape(shape) if shape else v[0]
+        i += n
+    return out
+
+
+class _FusedFetch:
+    """A tick's device→host copies, queued at dispatch: the packed outputs
+    and the u8 output frames (two pinned non-blocking copies), waited on
+    through one event at completion, the loop's only sync point."""
+
+    def __init__(self, out):
+        with torch.inference_mode():
+            parts = (_pack(out), out["vis_u8"])
+        self._event = None
+        if parts[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
+            for h, t in zip(self._host, parts):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(parts)
+
+    def result(self):
+        """Each frame's outputs: a dict of numpy values with ``vis_u8`` (H, W)."""
+        if self._event is not None:
+            self._event.synchronize()
+        packed, vis = (t.numpy() for t in self._host)
+        return [{**_unpack(packed[j]), "vis_u8": vis[j]} for j in range(len(packed))]
+
+
+class FusedVidStream:
+    """Fused iris/pose + depth stream (reference: midas_mediapipe.py:11-159),
+    a copy of the JAX package's ``FusedVidStream`` in its fused mode.
+
+    Each tick reads K = ``microbatch`` frames (1 per frame) and dispatches
+    one fused frame program (``runtime/fused.py``): depth, face detection,
+    FaceMesh+iris, the BlazePose fallback, the output frame and the depth
+    samples, with the results queued for copy. Up to ``pipeline_depth``
+    ticks are in flight; the oldest is then completed in frame order: the
+    face state filled, a depth sample recorded, the iris or body path taken,
+    the HUD drawn and the side-by-side frame written. Body-fallback
+    sampling points are up to K·``pipeline_depth`` frames stale, as in the
+    JAX loop (docs/PARITY.md)."""
+
+    def __init__(self, estimator, detector, face, src=None, output=None, verbose: bool = True, *,
+                 start_frame: int = 0, retries: int = 2, pipeline_depth: int = 2, microbatch: int = 1):
+        """pipeline_depth: ticks in flight before the oldest is completed (1
+        is synchronous, the reference's order). microbatch: frames a program.
+        The device samples are ``FaceDet.get_depth``'s faithful ones, so
+        ``face`` must be faithful."""
+        from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
+
+        if not getattr(face, "faithful", True):
+            raise ValueError("FusedVidStream samples depth as the faithful FaceDet does; "
+                             "a faithful=False FaceDet is not supported")
+        self.detector = detector
+        self.estimator = estimator
+        self.face = face
+        self.video = PrefetchSource(ResilientSource(open_source(src), retries=retries))
+        self.start_frame = int(start_frame)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.microbatch = max(1, int(microbatch))
+        self._runner = FusedFrameRunner(estimator, detector)
+        self._fused_pose = None  # the current frame's pose landmarks from the program
+        self.FPS = 1 / 30
+        self.FPS_MS = int(self.FPS * 1000)
+        self.w = int(self.video.width)
+        self.h = int(self.video.height)
+        # two half-size frames side by side (midas_mediapipe.py:27)
+        self.writer = open_sink(output, (self.w, self.h // 2), fps=20)
+        self.status = False
+        self.frame = None
+        self.cnt = 0
+        self.timer = StageTimer()
+        self.performance = self.timer.performance  # reference-compatible dict
+        self.verbose = verbose
+        self.log = JsonLogger()
+        self.route_counts = {"iris": 0, "body": 0}
+
+    def stream(self):
+        for _ in range(self.start_frame):  # deterministic resume
+            ok, _f = self.video.read()
+            if not ok:
+                break
+            self.cnt += 1
+        K = self.microbatch
+        inflight = deque()  # (fetch, frames, first frame number, had_pts, t_dispatch, cpu_dispatch)
+        eof = open_error = False
+        while not eof:
+            if not self.video.is_opened():
+                while inflight:
+                    self._complete(inflight.popleft())
+                print("Error opening file.")
+                print(f"Sucessfully read {self.cnt} out of {self.video.frame_count} frames.")
+                open_error = True
+                break
+            frames = []
+            while len(frames) < K:
+                self.status, frame = self.video.read()
+                if not self.status:
+                    eof = True
+                    break
+                frames.append(frame)
+                self.cnt += 1
+                if self.verbose:
+                    print(f"Frame: {self.cnt}")
+            if not frames:
+                break
+            # a tail tick pads with its last frame (one program shape); the
+            # padding's results are never completed
+            batch = np.stack(frames + [frames[-1]] * (K - len(frames)))
+            pts = self.face.head_pts
+            had_pts = pts is not None
+            pts_arr = np.zeros((K, 2, 2), np.int32)
+            if had_pts:
+                pts_arr[:] = [[int(pts[0][0]), int(pts[0][1])], [int(pts[1][0]), int(pts[1][1])]]
+            c0 = time.process_time()
+            t0 = time.perf_counter()
+            fetch = _FusedFetch(self._runner.batched(batch, fallback_pts=pts_arr))
+            inflight.append((fetch, frames, self.cnt - len(frames) + 1, had_pts, t0, time.process_time() - c0))
+            if len(inflight) >= self.pipeline_depth:
+                self._complete(inflight.popleft())
+        while inflight:
+            self._complete(inflight.popleft())
+        if not open_error:
+            self.timer.report()  # end-of-stream report (midas_mediapipe.py:118-122)
+        dropped = getattr(self.video, "frames_dropped", 0)
+        if dropped and self.verbose:
+            print(f"Dropped {dropped} undecodable frames.")
+        if self.log.enabled:
+            self.log.log("stream_end", frames=self.cnt, frames_dropped=dropped, **self.timer.summary())
+            self.log.close()
+        self.video.release()
+        self.writer.release()
+
+    def _complete(self, entry):
+        """Wait for a tick's copies, record its frames' depth spans, then run
+        each frame's host half in order."""
+        fetch, frames, first_n, had_pts, t0, cpu_d = entry
+        c0 = time.process_time()
+        outs = fetch.result()
+        self.timer.record_completion("depth", t0, cpu_d + time.process_time() - c0, frames=len(frames))
+        for j, frame in enumerate(frames):
+            self._host_frame(frame, outs[j], had_pts, first_n + j)
+
+    def _host_frame(self, frame, out, had_pts, n):
+        """One frame's host half: the face state, the depth sample (recorded
+        before the path choice, midas_mediapipe.py:62), HUD and output. ``n``
+        is the frame's 1-based number."""
+        self.frame = frame
+        self.face.mesh = None  # per-frame detection reset (:51)
+        found = bool(out["valid"][0])
+        self.detector.set_fused_mesh(frame, out["mesh"], out["mesh_score"], out["l_center"], out["l_radius"],
+                                     out["r_center"], out["r_radius"], found=found)
+        self._fused_pose = None if found else (out["pose_lm"], out["pose_score"])
+        if found:
+            sample = out["iris_sample"]
+        elif had_pts:
+            sample = out["fallback_sample"]
+        elif self.face.head_pts is not None:
+            # head points appeared only after this frame was dispatched:
+            # sample at the frame's own ears (docs/PARITY.md)
+            sample = out["ears_sample"]
+        else:
+            sample = None
+        if sample is not None:
+            self.face.record_depth(float(sample))
+            self.face.rel2abs()
+        self._log_frame(n)
+        self._route_frame(merge_gray3(out["vis_u8"]))
+
+    def _log_frame(self, n):
+        if self.log.enabled:
+            self.log.log("frame", n=n, ri_depth=float(self.face.ri_depth),
+                         abs_depth=float(self.face.abs_depth), face_found=self.face.mesh is not None)
+
+    def _route_frame(self, vis):
+        """Degenerate-iris guard, then the iris or body path on the current
+        face state; ``vis`` is the 3-channel u8 depth frame."""
+        if self.face.mesh is not None and not (self.face.l_iris["radius"] or 0) > 0:
+            # a degenerate iris fit goes the body way instead of dividing by 0
+            self.face.mesh = None
+        if self.face.mesh is not None:
+            self.route_counts["iris"] += 1
+            self._iris_path(vis)
+        else:
+            self.route_counts["body"] += 1
+            self._body_path(vis)
+
+    # -- iris path (midas_mediapipe.py:64-94) -------------------------------
+
+    def _iris_path(self, vis):
+        self.detector.visualize(self.frame)
+        l_diameter = self.face.l_iris["radius"] * 2
+        self.face.s2c_dist(self.face.w_iris, l_diameter)
+        x1, y1 = self.face.mesh[self.detector.HEAD[0]]
+        x2, y2 = self.face.mesh[self.detector.HEAD[1]]
+        self.face.get_headw((x1, y1), (x2, y2))
+        messages = [
+            f"S2C Distance (ft) - iris: {str(self.face.s2c_d)}",
+            f"Head width (in): {str(round((self.face.head_w / 10) / 2.54, 2))}",
+            f"head_w_mm: {str(self.face.head_w)}",
+            f"focal length: {round(self.face.f, 2)}",
+        ]
+        self.write_messages(messages, self.frame)
+        self.write_messages(self._depth_messages(), vis)
+        self.write_output(vis)
+
+    # -- body fallback path (midas_mediapipe.py:95-117) ----------------------
+
+    def _body_path(self, vis):
+        self.face.rel2abs()
+        self._put_text(self.frame, "Face not detected. Using body pose estimates.", (70, 50), (255, 0, 0))
+        with self.timer.stage("body"):
+            if self._fused_pose is not None:  # BlazePose already ran in the program
+                self.frame, head_pts = self.detector.body_from_fused(self.frame, *self._fused_pose)
+            else:  # a hit with a degenerate iris fit: the staged call
+                self.frame, head_pts = self.detector.findBody(self.frame)
+        # get_headw scales by the iris radius (face.py:88), known only once a
+        # face has been seen; the reference crashes here without one
+        if head_pts and len(head_pts) >= 2 and (self.face.l_iris["radius"] or 0) > 0:
+            self.face.get_headw(head_pts[0], head_pts[1])
+            self.face.s2c_dist(median(self.face.head_measurements), self.face.head_w)
+            self._put_text(self.frame, f"S2C dist (ft): {self.face.s2c_d}", (50, 150), (0, 255, 0))
+        self.write_messages(self._depth_messages(), vis)
+        self.write_output(vis)
+
+    def _depth_messages(self):
+        msgs = [
+            f"Relative Inverse Depth: {round(float(self.face.ri_depth), 2)}",
+            f"Absolute Depth: {round(float(self.face.abs_depth), 2)}",
+        ]
+        if self.face.s2c_ds and self.face.abs_depths:
+            msgs.append(f"RMSE: {round(self.face.rmse(), 2)}")
+            msgs.append(f"MAE: {round(self.face.mae(), 2)}")
+        return msgs
+
+    # -- rendering helpers (host-side HUD) -----------------------------------
+
+    def _put_text(self, img, text, org, color):
+        try:
+            import cv2
+
+            cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 1, color, 2, cv2.LINE_AA)
+        except ImportError:
+            pass
+
+    def write_messages(self, messages, img):
+        for idx, m in enumerate(messages):
+            self._put_text(img, m, (50, 50 + idx * 50), (0, 255, 0))
+
+    def side_by_side(self, img1, img2):
+        return side_by_side(img1, img2, self.w, self.h)
+
+    def write_output(self, depth_frame):
+        self.writer.write(self.side_by_side(self.frame, depth_frame))

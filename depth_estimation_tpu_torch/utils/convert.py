@@ -1,9 +1,11 @@
 """JAX parameter tree → the port's state dict.
 
-The port's modules keep the torch-hub key names, so these are the inverses
-of the JAX package's ``utils/convert.py::convert_dpt``,
+The port's depth modules keep the torch-hub key names, so these are the
+inverses of the JAX package's ``utils/convert.py::convert_dpt``,
 ``::convert_midas_small`` and ``::convert_midas_v21`` (hub state dict → Flax
-params). They let both packages run on the same weights.
+params). The detector nets (BlazeFace, FaceMesh+iris, BlazePose) keep the
+Flax module names instead, so their converters walk the tree key for key.
+They let both packages run on the same weights.
 
 Layout rules (inverse of the JAX converter's):
   conv kernel        (kH, kW, I, O) → (O, I, kH, kW)   (patch embed included)
@@ -13,6 +15,8 @@ Layout rules (inverse of the JAX converter's):
   layer norm         scale/bias     → weight/bias
   frozen batch norm  scale/bias/mean/var → weight/bias/running_mean/running_var
   group norm         {"gn": {scale, bias}} → weight/bias
+  depthwise conv     (kH, kW, 1, C) → (C, 1, kH, kW)   (the conv rule)
+  PReLU              alpha          → alpha
 """
 
 from __future__ import annotations
@@ -196,3 +200,44 @@ def params_from_jax_midas_v21(params: Mapping, cfg: MidasV21Config = MIDAS_V21) 
                 _bn(sd, f"{pre}.downsample.1", blk["downsample_bn"])
     _decoder(sd, p, out_conv=False)
     return _to_tensors(sd)
+
+
+def _flax_tree(sd: Dict, prefix: str, tree: Mapping) -> None:
+    """A detector's Flax tree, module names kept: ``kernel`` → ``weight``
+    (4-d by the conv rule, 2-d by the dense one), ``bias`` and ``alpha`` as
+    they are."""
+    for name, v in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(v, Mapping):
+            _flax_tree(sd, key, v)
+        elif name == "kernel":
+            k = np.asarray(v)
+            sd[f"{prefix}.weight"] = f2t_conv(k) if k.ndim == 4 else f2t_linear(k)
+        elif name in ("bias", "alpha"):
+            sd[key] = v
+        else:
+            raise KeyError(f"unexpected detector parameter {key!r}")
+
+
+def _detector(params: Mapping) -> Dict[str, torch.Tensor]:
+    sd: Dict = {}
+    _flax_tree(sd, "", params.get("params", params))
+    return _to_tensors(sd)
+
+
+def params_from_jax_blazeface(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.blazeface.BlazeFace`` → the port's
+    ``BlazeFace`` state dict."""
+    return _detector(params)
+
+
+def params_from_jax_facemesh(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.facemesh.FaceMeshWithIris`` → the
+    port's ``FaceMeshWithIris`` state dict."""
+    return _detector(params)
+
+
+def params_from_jax_blazepose(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.blazepose.BlazePose`` → the port's
+    ``BlazePose`` state dict (its unused heatmap branch included)."""
+    return _detector(params)

@@ -135,6 +135,29 @@ def test_preprocess_kernel_matches_plain(cuda, batch, cfg, out_hw):
     torch.testing.assert_close(got, ref, atol=3e-5, rtol=0)
 
 
+# K2's linear route at the fused iris path's detector inputs: (out_hw, mean,
+# std) → (th, tw, blocks) at batch 1 and 4 on 132 SMs
+_K2_DETECTORS = {((128, 128), (0.5,) * 3, (0.5,) * 3): ((2, 32, 256), (8, 32, 256)),
+                 ((256, 256), (0.0,) * 3, (1.0,) * 3): ((4, 64, 256), (16, 64, 256))}
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("out_hw,mean,std", list(_K2_DETECTORS), ids=["blazeface", "blazepose"])
+def test_preprocess_kernel_linear_route_at_detector_shapes(cuda, batch, out_hw, mean, std):
+    """480×640 u8 → the detectors' inputs by K2's linear route, against the
+    plain version at 1e-5, one launch, at the tilings the CPU tests walk."""
+    th, tw, blocks = _K2_DETECTORS[(out_hw, mean, std)][batch == 4]
+    t = trsz.tiling((480, 640), out_hw, batch, 132, "preprocess", "linear")
+    assert (t["th"], t["tw"], t["blocks"]) == (th, tw, blocks), t
+    rng = np.random.default_rng(batch)
+    imgs = torch.from_numpy(rng.integers(0, 256, (batch, 480, 640, 3), np.uint8)).to(cuda)
+    before = trsz.fused_preprocess.launches
+    got = trsz.fused_preprocess(imgs, out_hw, mean, std, method="linear")
+    assert trsz.fused_preprocess.launches == before + 1
+    ref = trsz.preprocess_plain(imgs, out_hw, mean, std, method="linear")
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
 def _offset_view(x, offset):
     """A contiguous copy of x whose data pointer lies ``offset`` values past
     an allocation's 16-byte-aligned start."""
@@ -419,3 +442,38 @@ def test_estimator_on_the_card_holds_the_cpu(cuda, name):
     scale = float(np.abs(want).max())
     assert np.isfinite(got).all() and scale > 0
     assert float(np.abs(got - want).max()) / scale < 1e-3
+
+
+def test_fused_program_on_the_card_holds_the_cpu(cuda):
+    """The fused iris/pose + DPT_Large program on the card (its kernels)
+    against the same weights on the CPU at 240×320, on a hit: depth within
+    the accuracy gate, detections within 1e-4; launches K1 24, K2 3, K3 1."""
+    import warnings
+
+    from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.geometry.face import FaceDet
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
+
+    card = (505, 504, 675, 501)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        est = DepthEstimator("DPT_Large", seed=0, verbose=False)
+        det = PersonDetector(FaceDet(20, card), minDetectionCon=0.0, seed=0)
+    cpu_est = DepthEstimator("DPT_Large", params={k: v.cpu() for k, v in est.model.state_dict().items()},
+                             verbose=False, device="cpu")
+    params = {key: net.state_dict() for key, net in (("blazeface", det._face_det), ("facemesh", det._mesh),
+                                                      ("blazepose", det._pose))}
+    cpu_det = PersonDetector(FaceDet(20, card), minDetectionCon=0.0, params={k: {n: v.cpu() for n, v in sd.items()}
+                                                                           for k, sd in params.items()}, device="cpu")
+    frame = np.random.default_rng(0).integers(0, 256, (240, 320, 3), np.uint8)
+    kernels.reset_launch_counts()
+    got = {k: v.cpu().numpy() for k, v in FusedFrameRunner(est, det)(frame).items()}
+    assert kernels.launch_counts() == {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1,
+                                       "grouped_conv3x3": 0}
+    want = {k: v.numpy() for k, v in FusedFrameRunner(cpu_est, cpu_det)(frame).items()}
+    scale = float(np.abs(want["depth"]).max())
+    assert np.isfinite(got["depth"]).all() and float(np.abs(got["depth"] - want["depth"]).max()) / scale < 1e-3
+    assert got["valid"][0] and want["valid"][0]
+    np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4, rtol=0)

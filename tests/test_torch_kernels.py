@@ -145,11 +145,27 @@ def test_k23_tiling_windows_at_main_shapes(kernel, in_hw, out_hw, batch):
         assert 132 <= t["blocks"] <= 2 * 132
 
 
+# K2's linear route: the detectors' inputs on the fused iris path (BlazeFace
+# 128², BlazePose 256²), downscales of 3.75 × 5 and 1.875 × 2.5
+_K2_DETECTORS = [((480, 640), (128, 128)), ((480, 640), (256, 256))]
+
+
+@pytest.mark.parametrize("in_hw,out_hw", _K2_DETECTORS, ids=["blazeface", "blazepose"])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_k2_linear_tiling_windows_at_detector_shapes(in_hw, out_hw, batch):
+    """The downscales' windows (4-5× a tile's width) fit shared memory, a
+    launch is one wave, and at batch 1 one of one to two blocks an SM."""
+    t = _k23_walk_tiles("preprocess", in_hw, out_hw, batch, "linear")
+    assert t["blocks"] <= 132 * t["blocks_per_sm"]
+    if batch == 1:
+        assert 132 <= t["blocks"] <= 2 * 132
+
+
 @pytest.mark.parametrize("kernel,in_hw,out_hw", _K23_RAGGED)
 def test_k23_tiling_windows_at_ragged_shapes(kernel, in_hw, out_hw):
     """Ragged shapes, several batches and SM counts; K3 also in linear with
-    and without align_corners (K2 is cubic only)."""
-    methods = [("cubic", False)] + ([("linear", True), ("linear", False)] if kernel == "resize" else [])
+    and without align_corners, K2 also in linear."""
+    methods = [("cubic", False), ("linear", False)] + ([("linear", True)] if kernel == "resize" else [])
     for method, align_corners in methods:
         for batch, sms in ((1, 132), (3, 132), (1, 8)):
             _k23_walk_tiles(kernel, in_hw, out_hw, batch, method, align_corners, sms)
@@ -226,8 +242,8 @@ def _k23_passes(x, in_hw, out_hw, method="cubic", align_corners=False):
     return acc  # (B, H_out, W_out, C)
 
 
-def _k2_emulate(imgs, out_hw, mean, std, bgr=True):
-    acc = _k23_passes(imgs.float(), imgs.shape[1:3], out_hw)
+def _k2_emulate(imgs, out_hw, mean, std, bgr=True, method="cubic"):
+    acc = _k23_passes(imgs.float(), imgs.shape[1:3], out_hw, method)
     acc = acc.flip(-1) if bgr else acc
     scale, bias = (torch.tensor(v, dtype=torch.float32) for v in trsz.normalize_affine(mean, std))
     return _fma(acc, scale.expand_as(acc), bias.expand_as(acc)).permute(0, 3, 1, 2)
@@ -255,6 +271,20 @@ def test_k2_two_pass_arithmetic_at_dpt_main_shape(rng):
     got = _k2_emulate(imgs, (384, 512), DPT_PREPROCESS.mean, DPT_PREPROCESS.std)
     plain = trsz.preprocess_plain(imgs, (384, 512), DPT_PREPROCESS.mean, DPT_PREPROCESS.std)
     torch.testing.assert_close(got, plain, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("out_hw,mean,std", [((128, 128), (0.5,) * 3, (0.5,) * 3), ((256, 256), (0.0,) * 3, (1.0,) * 3)],
+                         ids=["blazeface", "blazepose"])
+def test_k2_linear_two_pass_arithmetic_at_detector_shapes(rng, out_hw, mean, std):
+    """K2's linear route at the detectors' inputs: its two passes (2 taps a
+    row, padded with zero weights) and folded normalization against the
+    plain version and the Pallas kernel in linear mode."""
+    img = rng.integers(0, 256, (480, 640, 3), np.uint8)
+    got = _k2_emulate(torch.from_numpy(img)[None], out_hw, mean, std, method="linear")
+    plain = trsz.preprocess_plain(torch.from_numpy(img)[None], out_hw, mean, std, method="linear")
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+    ref = np.asarray(pallas_preprocess(img, out_hw, mean, std, method="linear", interpret=True))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("in_hw,out_hw,method,align_corners", [
