@@ -184,8 +184,11 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
 def check_preprocess(frames, net_hw, cfg, timed, method="cubic"):
     """K2 against its plain version at ``atol`` 3e-5 (cubic) or 1e-5 (the
     linear route); its bound counts the route's taps: a 2-D cubic output
-    value is 16 multiply-adds of the frame, a linear one 4."""
-    from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, preprocess_plain, tiling
+    value is 16 multiply-adds of the frame, a linear one 4. Its bytes are
+    the frame pixels that some tap reaches (distinct rows × distinct columns
+    with a nonzero weight × 3): a linear downscale reads only part of the
+    frame (480×640 → 128² reaches 256 rows and 128 columns)."""
+    from depth_estimation_tpu_torch.ops.kernels.resize import band_taps, fused_preprocess, preprocess_plain, tiling
 
     atol, taps = (3e-5, 16) if method == "cubic" else (1e-5, 4)
     got = fused_preprocess(frames, net_hw, cfg.mean, cfg.std, method=method)
@@ -199,7 +202,11 @@ def check_preprocess(frames, net_hw, cfg, timed, method="cubic"):
                             method)}
     if timed:
         h_out, w_out = net_hw
-        nbytes = frames.numel() + got.numel() * 4 + (h_out + w_out) * 4 * 8  # frame, output, tap tables
+        reached = [len(np.unique(idx[wts != 0])) for idx, wts in
+                   (band_taps(n_in, n_out, method) for n_in, n_out in zip(frames.shape[1:3], net_hw))]
+        frame_bytes = frames.shape[0] * reached[0] * reached[1] * frames.shape[3]
+        nbytes = frame_bytes + got.numel() * 4 + (h_out + w_out) * 4 * 8  # frame, output, tap tables
+        row.update(frame_rows_cols_reached=reached)
         bnd, by = bound_ms(nbytes, got.numel() * (2 * taps + 2))
         row.update(ms=time_ms(lambda: fused_preprocess(frames, net_hw, cfg.mean, cfg.std, method=method)),
                    plain_ms=time_ms(lambda: preprocess_plain(frames, net_hw, cfg.mean, cfg.std, method=method)),
@@ -436,7 +443,6 @@ def bf16_tail(est, est16, frame, bound, phase):
 
 # -- the fused iris/pose + depth path ----------------------------------------------
 
-CARD = (505, 504, 675, 501)
 FUSED_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
 DETECTOR_INPUTS = {"blazeface_128x128": ((128, 128), (0.5,) * 3, (0.5,) * 3),
                    "blazepose_256x256": ((256, 256), (0.0,) * 3, (1.0,) * 3)}
@@ -451,6 +457,7 @@ def detector_weights(seed=0):
     of the frame instead of 1×1)."""
     import warnings
 
+    from depth_estimation_tpu_torch.config import CARD
     from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
     from depth_estimation_tpu_torch.geometry.face import FaceDet
 
@@ -469,6 +476,7 @@ def detector_weights(seed=0):
 
 
 def make_detector(weights, thresh=0.2, device="cuda"):
+    from depth_estimation_tpu_torch.config import CARD
     from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
     from depth_estimation_tpu_torch.geometry.face import FaceDet
 
@@ -596,7 +604,9 @@ def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
     part alone (``branch_times``): depth, BlazeFace with NMS, the mesh branch
     (crop, FaceMesh+iris, circles) and the pose branch, the last two being
     the branches that JAX's ``lax.cond`` chooses between, both of which run
-    here."""
+    here. The larger of those two is the branch not taken, read as a share
+    of the program's busy time and of its host time (the program is
+    host-bound: the branch's dispatch is its larger cost)."""
     from depth_estimation_tpu_torch.detect.circle import min_enclosing_circle_torch
     from depth_estimation_tpu_torch.device import full_f32
     from depth_estimation_tpu_torch.runtime.fused import (FusedFrameRunner, blazeface_branch, crop_box, mesh_points,
@@ -642,11 +652,12 @@ def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
                     "mesh": mesh_branch, "pose": lambda: pose_branch(det._pose, frames)}
         branch = {name: branch_times(fn, n) for name, fn in branches.items()}
     untaken = max(branch["mesh"]["busy_ms"], branch["pose"]["busy_ms"])
+    untaken_host = max(branch["mesh"]["host_ms"], branch["pose"]["host_ms"])
     emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), batch=batch, program_ms=program_ms,
          frame_ms=program_ms / batch, device_busy_ms_per_program=busy_ms,
          device_idle_share=max(0.0, 1 - busy_ms / program_ms), device_kernels_per_program=kernels_run,
          cuda_launch_calls_per_program=launches, branches=branch,
-         untaken_branch_busy_share_max=untaken / busy_ms,
+         untaken_branch_busy_share_max=untaken / busy_ms, untaken_branch_host_share_max=untaken_host / program_ms,
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
 

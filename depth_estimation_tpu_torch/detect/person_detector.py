@@ -18,7 +18,7 @@ numerically meaningless); ``params={"blazeface": sd, "facemesh": sd,
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ from depth_estimation_tpu_torch.estimator import random_state_dict
 from depth_estimation_tpu_torch.models.blazeface import BlazeFace
 from depth_estimation_tpu_torch.models.blazepose import BlazePose
 from depth_estimation_tpu_torch.models.facemesh import FaceMeshWithIris
-from depth_estimation_tpu_torch.runtime.fused import blazeface_branch, mesh_points, pose_branch, to_int32
+from depth_estimation_tpu_torch.runtime.fused import blazeface_branch, crop_box, mesh_points, pose_branch, to_int32
 
 # (params key, net, seed offset): the JAX detector's seeds, seed + 2 being its
 # pose detector, which the fused path never runs
@@ -84,41 +84,21 @@ class PersonDetector:
     def _frame(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)[None]).to(self.device)
 
-    # -- helpers ------------------------------------------------------------
-
-    def _best_face_box(self, img, detection=None) -> Optional[Tuple[int, int, int, int]]:
-        """Pixel (x0, y0, x1, y1) with a 25% margin, from a fresh detection or
-        a (boxes, scores, valid) triple of the fused program."""
-        h, w = img.shape[:2]
-        if detection is None:
-            with torch.inference_mode(), full_f32():
-                detection = [t[0].cpu() for t in blazeface_branch(
-                    self._face_det, self._face_anchors, self.minDetectionCon, self._frame(img))]
-        boxes, _scores, valid = (np.asarray(t) for t in detection)
-        if not bool(valid[0]):
-            return None
-        ymin, xmin, ymax, xmax = boxes[0, :4]
-        bw, bh = xmax - xmin, ymax - ymin
-        x0 = int(np.clip((xmin - 0.25 * bw) * w, 0, w - 2))
-        x1 = int(np.clip((xmax + 0.25 * bw) * w, x0 + 1, w))
-        y0 = int(np.clip((ymin - 0.25 * bh) * h, 0, h - 2))
-        y1 = int(np.clip((ymax + 0.25 * bh) * h, y0 + 1, h))
-        return x0, y0, x1, y1
-
     # -- public API (reference-compatible) ----------------------------------
 
-    def findIris(self, img: np.ndarray, detection=None) -> None:
+    def findIris(self, img: np.ndarray) -> None:
         """Detect the irises of a single person (detectors.py:42-64). On a
         hit writes ``face.mesh`` (478×2 int frame pixels) and both iris
-        circles; on a miss leaves ``face.mesh`` as it is."""
+        circles; on a miss leaves ``face.mesh`` as it is. The face crop is
+        the fused program's ``crop_box`` (the JAX ``_best_face_box``)."""
         self.h, self.w = img.shape[:2]
-        box = self._best_face_box(img, detection)
-        if box is None:
-            self.results = None
-            return
-        x0, y0, x1, y1 = (torch.tensor([float(v)], device=self.device) for v in box)
+        frames = self._frame(img)
         with torch.inference_mode(), full_f32():
-            points, score = mesh_points(self._mesh, self._frame(img), x0, x1, y0, y1)
+            boxes, _scores, valid = blazeface_branch(self._face_det, self._face_anchors, self.minDetectionCon, frames)
+            if not bool(valid[0, 0]):
+                self.results = None
+                return
+            points, score = mesh_points(self._mesh, frames, *crop_box(boxes, self.h, self.w))
         mesh = to_int32(points)[0].cpu().numpy().astype(int)
         self.results = {"landmarks": mesh, "score": float(score[0])}
         self.face.mesh = mesh
@@ -183,8 +163,8 @@ class PersonDetector:
         cv2.circle(img, center_right, int(self.face.r_iris["radius"]), (255, 0, 255), 2, cv2.LINE_AA)
         cv2.line(img, mesh[self.HEAD[0]], mesh[self.HEAD[1]], (0, 255, 0), 1, cv2.LINE_AA)
         cv2.line(img, mesh[self.HEAD[2]], mesh[self.HEAD[3]], (0, 255, 0), 1, cv2.LINE_AA)
-        cv2.circle(img, (505, 504), 1, (255, 0, 255), 2, cv2.LINE_AA)
-        cv2.circle(img, (675, 501), 1, (255, 0, 255), 2, cv2.LINE_AA)
+        cv2.circle(img, tuple(self.CARD[:2]), 1, (255, 0, 255), 2, cv2.LINE_AA)
+        cv2.circle(img, tuple(self.CARD[2:]), 1, (255, 0, 255), 2, cv2.LINE_AA)
         self.frame = img
 
     def _draw_point(self, img, center, label):

@@ -16,6 +16,7 @@ import argparse
 
 import numpy as np
 
+from depth_estimation_tpu_torch.config import CARD
 from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.geometry.face import FaceDet
@@ -39,7 +40,7 @@ def main(argv=None):
                         help="torch device; 'cpu' runs the kernels' plain PyTorch versions")
     args = parser.parse_args(argv)
 
-    card = np.array([505, 504, 675, 501])  # raw card endpoints in the test footage (:174)
+    card = np.array(CARD)  # raw card endpoints in the test footage (:174)
     d_2_obj = 20  # distance to the credit card, inches (:177)
     face = FaceDet(d_2_obj, card)
     estimator = DepthEstimator(args.model_type, dtype=args.dtype, device=args.device)

@@ -41,21 +41,17 @@ def merge_gray3(gray_u8: np.ndarray) -> np.ndarray:
 
 
 def to_video_frame_u8(depth: torch.Tensor) -> torch.Tensor:
-    """``to_video_frame`` (faithful) on the device, without the 3-channel
+    """``to_video_frame`` on the device, without the 3-channel
     merge: (…, H, W) float → uint8, ``*5 + 10`` in uint8 arithmetic, which
     wraps in torch as in numpy (JAX ``to_video_frame_u8_jax``)."""
     return wraparound_u8(depth) * 5 + 10
 
 
-def to_video_frame(depth: np.ndarray, faithful: bool = True) -> np.ndarray:
+def to_video_frame(depth: np.ndarray) -> np.ndarray:
     """midas_mediapipe.py:141-150 on the host (uint8 wrap-around kept)."""
-    out = depth_to_gray_u8(depth, faithful=faithful)
-    if faithful:
-        out = out.copy()
-        out *= 5  # uint8 arithmetic — wraps, as in the reference
-        out += 10
-    else:
-        out = np.clip(out.astype(np.int32) * 5 + 10, 0, 255).astype(np.uint8)
+    out = depth.astype(np.uint8)
+    out *= 5  # uint8 arithmetic — wraps, as in the reference
+    out += 10
     return merge_gray3(out)
 
 

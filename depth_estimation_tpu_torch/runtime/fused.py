@@ -7,7 +7,7 @@ from u8 BGR frames already on the device, with no host sync inside:
   f32 map at the source size);
 * BlazeFace on K2's linear route to 128² (mean = std = 0.5: ``rgb·2 − 1``),
   decode and weighted NMS;
-* the face crop box (``_best_face_box``'s 25% margin and truncating casts),
+* the face crop box (JAX ``_best_face_box``'s 25% margin and truncating casts),
   FaceMesh+iris on the 192² crop of the /255 RGB frame, landmarks mapped to
   frame pixels, both iris circles fitted;
 * BlazePose on K2's linear route to 256² (mean 0, std 1);
@@ -61,7 +61,7 @@ def blazeface_branch(face_net, anchors: torch.Tensor, thresh: float, frames: tor
 
 
 def crop_box(boxes: torch.Tensor, h: int, w: int):
-    """The face crop of each frame's best box, as ``_best_face_box``: 25%
+    """The face crop of each frame's best box, as the JAX ``_best_face_box``: 25%
     margin, ordered clips, truncating casts → x0, x1, y0, y1 (B,) float32."""
     ymin, xmin, ymax, xmax = (boxes[:, 0, i] for i in range(4))
     bw, bh = xmax - xmin, ymax - ymin

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS
+from depth_estimation_tpu_torch.config import CARD, DPT_PREPROCESS, SMALL_PREPROCESS
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
@@ -456,16 +456,15 @@ def test_fused_program_on_the_card_holds_the_cpu(cuda):
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
 
-    card = (505, 504, 675, 501)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         est = DepthEstimator("DPT_Large", seed=0, verbose=False)
-        det = PersonDetector(FaceDet(20, card), minDetectionCon=0.0, seed=0)
+        det = PersonDetector(FaceDet(20, CARD), minDetectionCon=0.0, seed=0)
     cpu_est = DepthEstimator("DPT_Large", params={k: v.cpu() for k, v in est.model.state_dict().items()},
                              verbose=False, device="cpu")
     params = {key: net.state_dict() for key, net in (("blazeface", det._face_det), ("facemesh", det._mesh),
                                                       ("blazepose", det._pose))}
-    cpu_det = PersonDetector(FaceDet(20, card), minDetectionCon=0.0, params={k: {n: v.cpu() for n, v in sd.items()}
+    cpu_det = PersonDetector(FaceDet(20, CARD), minDetectionCon=0.0, params={k: {n: v.cpu() for n, v in sd.items()}
                                                                            for k, sd in params.items()}, device="cpu")
     frame = np.random.default_rng(0).integers(0, 256, (240, 320, 3), np.uint8)
     kernels.reset_launch_counts()

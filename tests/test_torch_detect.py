@@ -25,6 +25,7 @@ from depth_estimation_tpu.ops.resize import resize2d as jax_resize2d
 from depth_estimation_tpu.ops.sampling import crop_resize_bilinear as jax_crop
 from depth_estimation_tpu.ops.sampling import crop_resize_bilinear_rect as jax_crop_rect
 from depth_estimation_tpu.ops.sampling import crop_resize_linear_matmul as jax_crop_matmul
+from depth_estimation_tpu_torch.config import CARD
 from depth_estimation_tpu_torch.detect import anchors as tanc
 from depth_estimation_tpu_torch.detect import circle as tcirc
 from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
@@ -36,7 +37,6 @@ from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear, crop_resize_bilinear_rect
 from depth_estimation_tpu_torch.utils import convert
 
-CARD = (505, 504, 675, 501)
 CLASSIFIER_SCALE = 0.05  # scores near 0.75, not saturated
 BOX_SIZE = 0.2
 # (params key of both detectors, JAX module, input size, port module, converter)

@@ -30,7 +30,7 @@ from depth_estimation_tpu.runtime.stream import FusedVidStream as JaxFusedVidStr
 from depth_estimation_tpu.runtime.video import NullSink as JaxNullSink
 from depth_estimation_tpu.utils.convert import convert_dpt
 from depth_estimation_tpu_torch import registry as treg
-from depth_estimation_tpu_torch.config import DPT_PREPROCESS, LEFT_IRIS, RIGHT_IRIS
+from depth_estimation_tpu_torch.config import CARD, DPT_PREPROCESS, LEFT_IRIS, RIGHT_IRIS
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.geometry.face import FaceDet
 from depth_estimation_tpu_torch.models.dpt import DPT
@@ -235,7 +235,7 @@ def test_vis_u8_and_samples_match_the_host_forms(pairs, rng):
     are FaceDet.get_depth's on the same map."""
     out = pairs[HIT].port_batch(_frames(rng, 1), _pts(rng, 1))[0]
     np.testing.assert_array_equal(out["vis_u8"], to_video_frame(out["depth"])[..., 0])
-    face = FaceDet(20, [505, 504, 675, 501])
+    face = FaceDet(20, CARD)
     face.mesh = out["mesh"]
     face.l_iris = {"center": tuple(map(float, out["l_center"])), "radius": float(out["l_radius"])}
     face.r_iris = {"center": tuple(map(float, out["r_center"])), "radius": float(out["r_radius"])}
@@ -305,7 +305,7 @@ def test_fused_vidstream_refuses_unfaithful_face(estimators, trees):
     _, port = estimators
     _, tdet = detector_pair(trees, HIT)
     with pytest.raises(ValueError, match="faithful"):
-        FusedVidStream(port, tdet, FaceDet(20, [505, 504, 675, 501], faithful=False), "synthetic:2x120x160")
+        FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), "synthetic:2x120x160")
 
 
 def test_entry_point_writes_an_avi(tmp_path):

@@ -8,10 +8,10 @@ import pytest
 
 from depth_estimation_tpu.geometry import triangle as jtri
 from depth_estimation_tpu.geometry.face import FaceDet as JaxFaceDet
+from depth_estimation_tpu_torch.config import CARD
 from depth_estimation_tpu_torch.geometry import triangle as ttri
 from depth_estimation_tpu_torch.geometry.face import FaceDet
 
-CARD = (505, 504, 675, 501)
 RTOL = 1e-12
 
 
