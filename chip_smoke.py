@@ -77,10 +77,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    CPU (depth 1e-3, scores 1e-4, and where the top two kept scores lie 1e-4
    apart or more, boxes 1e-4, the mesh by the ±1 rule, circles, pose); the
    profile at batch 1 and 4, with each branch's device time alone.
+12. staged_stream — the staged loop (``FusedVidStream(fused=False)``,
+   ``--no-fused``) on the same DPT_Large, 8 frames: launches a frame K1 24,
+   K2 2 (depth, BlazeFace), K3 1, plus a K2 for each staged ``findBody``
+   (the body route); FPS and routes.
+13. detection_stream, detection_hold, detection_depth, detection_profile —
+   the detection-only path (``depth_by_detection``, ``FaceDetector``,
+   ``FusedDetectionRunner``) with ``detector_weights(seed=0)``: the port's
+   ``_loop`` over ``synthetic:16x480x640`` (K2 2 a program, K1 = K3 = K4 =
+   0, plus a K2 for each staged ``findBody``; the frames of each tier); the
+   program against the CPU plain path on a hit and a miss (scores, boxes
+   1e-4, mesh by the ±1 rule and from the BGR feed, pose max abs-rel 1e-4);
+   tier 2 with ``--with-depth MiDaS_small`` on a hit (K2 3, K3 1; the ROI
+   medians on the card equal to the CPU's on the same map, the map within
+   1e-3 of the CPU plain path's); one program's profile. Each prints its
+   seconds.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
-fused path's; K2's and K3's for each network input under ``per_shape``, with
+fused, detection and staged paths'; K2's and K3's for each network input under ``per_shape``, with
 K2's linear route's shapes),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
@@ -597,6 +612,35 @@ def branch_times(fn, n=8):
             "kernels": sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n}
 
 
+def program_profile(call, n):
+    """A program's ``call``, after two set-up calls: host ms a call (``n``
+    calls, then a sync), then under torch.profiler its device busy ms,
+    device kernels and ``cudaLaunchKernel`` calls a call, and the kernel rows
+    (name, device µs, count over the ``n`` calls) by device time."""
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    program_ms = (time.perf_counter() - t0) / n * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()), key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / n / 1e3
+    kernels_run = sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as cprof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in cprof.key_averages() if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                                      "cudaLaunchKernelExC")) / n
+    return program_ms, busy_ms, kernels_run, launches, rows
+
+
 def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
     """Fused programs of ``batch`` copies of ``frame``, one at a time: host
     ms a program, device busy ms and idle share, device kernels and
@@ -615,27 +659,7 @@ def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
     det = make_detector(weights)
     runner = FusedFrameRunner(est, det)
     imgs = np.stack([frame] * batch)
-    for _ in range(2):
-        runner.batched(imgs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        runner.batched(imgs)
-    torch.cuda.synchronize()
-    program_ms = (time.perf_counter() - t0) / n * 1e3
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            runner.batched(imgs)
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()), key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / n / 1e3
-    kernels_run = sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as cprof:
-        for _ in range(n):
-            runner.batched(imgs)
-        torch.cuda.synchronize()
-    launches = sum(e.count for e in cprof.key_averages() if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                                      "cudaLaunchKernelExC")) / n
+    program_ms, busy_ms, kernels_run, launches, rows = program_profile(lambda: runner.batched(imgs), n)
     frames = torch.from_numpy(imgs).cuda()
     with torch.inference_mode(), est._numerics(), full_f32():
         boxes = blazeface_branch(det._face_det, det._face_anchors, det.minDetectionCon, frames)[0]
@@ -660,6 +684,245 @@ def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
          untaken_branch_busy_share_max=untaken / busy_ms, untaken_branch_host_share_max=untaken_host / program_ms,
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
+
+
+# -- the detection-only path (depth_by_detection) and the staged loop ---------------------
+
+DETECTION_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 2, "resize_planes": 0, "grouped_conv3x3": 0}
+STAGED_PER_FRAME = {"multi_head_attention": 24, "fused_preprocess": 2, "resize_planes": 1, "grouped_conv3x3": 0}
+
+
+def make_face_detector(weights, thresh=0.2, device="cuda"):
+    from depth_estimation_tpu_torch.detect.face_detector import FaceDetector
+
+    return FaceDetector(minDetectionCon=thresh, params=weights, device=device)
+
+
+class _TierCounter:
+    """A FaceDetector as ``depth_by_detection._loop`` sees it, counting the
+    calls that mark each frame's tier: ``findFaces`` (tier 2, and before
+    tier 3), ``body_from_fused`` and the staged ``findBody`` (tier 3)."""
+
+    def __init__(self, det):
+        self.det, self.calls = det, {"findFaces": 0, "body_from_fused": 0, "findBody": 0}
+
+    def __getattr__(self, name):
+        fn = getattr(self.det, name)
+        if name not in self.calls:
+            return fn
+
+        def counted(*args, **kwargs):
+            self.calls[name] += 1
+            return fn(*args, **kwargs)
+
+        return counted
+
+
+def run_detection_stream(weights, out_path, phase="detection_stream"):
+    """The port's ``depth_by_detection._loop`` through ``FusedDetectionRunner``
+    over ``synthetic:16x480x640``, per frame, after one untimed program of
+    that size (set-up): launches a program DETECTION_PER_PROGRAM, plus one
+    K2 launch for each staged ``findBody`` (a hit whose iris fit is
+    degenerate and no tier-2 distance); frames of each tier printed."""
+    import argparse
+
+    from depth_estimation_tpu_torch import depth_by_detection as dbd
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.fused import FusedDetectionRunner
+    from depth_estimation_tpu_torch.runtime.video import open_sink, open_source
+
+    t_phase = time.perf_counter()
+    det = _TierCounter(make_face_detector(weights))
+    runner = FusedDetectionRunner(det.det)
+    runner(np.zeros((480, 640, 3), np.uint8))  # set-up
+    video, writer = open_source(f"synthetic:{FRAMES}x480x640"), open_sink(out_path, (640, 480), fps=20)
+    f = dbd.f_length(dbd.in_to_mm(20), w_object=82.6,
+                     w_pix=dbd.dist_euclid((dbd.CARD[0], dbd.CARD[2]), (dbd.CARD[1], dbd.CARD[3])))
+    head = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    dbd._loop(argparse.Namespace(quiet=True), video, writer, det, runner, None, f, head, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    video.release()
+    writer.release()
+    want = {name: n * FRAMES for name, n in DETECTION_PER_PROGRAM.items()}
+    want["fused_preprocess"] += det.calls["findBody"]
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+    check(os.path.getsize(out_path) > 0, f"{out_path} is empty")
+    tiers = {"iris": len(head), "face_box": det.calls["findFaces"] - det.calls["body_from_fused"]
+             - det.calls["findBody"], "body": det.calls["body_from_fused"] + det.calls["findBody"]}
+    check(sum(tiers.values()) == FRAMES, f"{phase}: tiers {tiers} over {FRAMES} frames")
+    emit(phase, frames=FRAMES, fps=FRAMES / wall, ms_per_frame=wall / FRAMES * 1e3, tiers=tiers,
+         staged_find_body=det.calls["findBody"], launches=counts, launches_per_program=DETECTION_PER_PROGRAM,
+         avi_bytes=os.path.getsize(out_path), seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def detection_hold(weights, frame, thresh, case, phase="detection_hold"):
+    """The detection program on the card against the same weights through
+    the plain paths on the CPU, on one 480×640 frame: valid equal, scores
+    within 1e-4; where the CPU's top two kept scores lie 1e-4 apart or more,
+    boxes within 1e-4, the mesh (ints equal, or ±1 where the CPU's float
+    landmark lies within 1e-3 of an integer; zeros on a miss) and the pose
+    (max abs-rel 1e-4; zeros on a hit). A hit's mesh must come from the BGR
+    feed: against the RGB feed's landmarks the same rule must fail."""
+    from depth_estimation_tpu_torch.device import full_f32
+    from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, u8_to_01
+    from depth_estimation_tpu_torch.runtime.fused import DETECTION_FIELDS, FusedDetectionRunner, crop_box, mesh_points
+
+    t_phase = time.perf_counter()
+    names = [name for name, _shape, _dtype in DETECTION_FIELDS]
+    cpu_det = make_face_detector(weights, thresh, "cpu")
+    gpu = dict(zip(names, FusedDetectionRunner(make_face_detector(weights, thresh))(frame)))
+    cpu = dict(zip(names, FusedDetectionRunner(cpu_det)(frame)))
+    check((gpu["valid"] == cpu["valid"]).all() and bool(cpu["valid"][0]) == (case == "hit"),
+          f"{phase} {case}: valid {gpu['valid']} vs {cpu['valid']}")
+    score_err = float(np.abs(gpu["scores"] - cpu["scores"]).max())
+    check(score_err <= 1e-4, f"{phase} {case}: scores differ by {score_err}")
+    kept = cpu["scores"][cpu["valid"]]
+    margin = float(kept[0] - kept[1]) if len(kept) > 1 else None
+    row = {"case": case, "score_max_abs_err": score_err, "top_two_margin": margin, "valid": int(cpu["valid"].sum())}
+    if margin is not None and margin < 1e-4:
+        row["held"] = "scores only: the top two kept scores lie within 1e-4"
+    else:
+        box_err = float(np.abs(gpu["boxes"] - cpu["boxes"]).max())
+        check(box_err <= 1e-4, f"{phase} {case}: boxes differ by {box_err}")
+
+        def landmarks(pixels):
+            with torch.inference_mode(), full_f32():
+                pts, _ = mesh_points(cpu_det._impl._mesh, torch.from_numpy(frame[None]),
+                                     *crop_box(torch.from_numpy(cpu["boxes"][None]), *frame.shape[:2]), pixels=pixels)
+            return pts[0].numpy()
+
+        def away(mesh, floats):  # entries the ±1 rule does not let through
+            diff = np.abs(mesh - np.trunc(floats))
+            return int(((diff > 0) & (np.abs(floats - np.round(floats)) >= 1e-3) | (diff > 1)).sum())
+
+        if case == "hit":
+            bgr, rgb = landmarks(u8_to_01), landmarks(bgr_u8_to_rgb01)
+            check((cpu["mesh"] == np.trunc(bgr)).all(), f"{phase}: the CPU mesh is not its BGR-fed landmarks")
+            moved, rgb_away = away(gpu["mesh"], bgr), away(gpu["mesh"], rgb)
+            check(moved == 0, f"{phase} {case}: {moved} mesh ints differ away from an integer")
+            check(rgb_away > 0, f"{phase} {case}: the mesh agrees with the RGB feed too")
+            check(not gpu["pose_lm"].any() and gpu["pose_score"] == 0, f"{phase} {case}: pose not zeros on a hit")
+            row.update(mesh_moved_by_rule=int((gpu["mesh"] != cpu["mesh"]).sum()),
+                       mesh_entries_off_the_rgb_feed=rgb_away, feed="bgr")
+        else:
+            check(not gpu["mesh"].any(), f"{phase} {case}: mesh not zeros on a miss")
+            pose_scale = float(np.abs(cpu["pose_lm"]).max()) or 1.0
+            pose_rel = float(np.abs(gpu["pose_lm"] - cpu["pose_lm"]).max()) / pose_scale
+            pscore_err = abs(float(gpu["pose_score"]) - float(cpu["pose_score"]))
+            check(pose_rel <= 1e-4 and pscore_err <= 1e-4,
+                  f"{phase} {case}: pose max abs-rel {pose_rel}, score {pscore_err}")
+            row.update(pose_max_abs_rel=pose_rel, pose_score_abs_err=pscore_err)
+        row.update(held="scores, boxes, mesh, pose", box_max_abs_err=box_err)
+    emit(phase, src_hw=list(frame.shape[:2]), seconds=time.perf_counter() - t_phase, **row)
+
+
+def detection_depth(weights, frame, phase="detection_depth"):
+    """Tier 2 with ``--with-depth MiDaS_small`` on a hit frame, as the loop
+    runs it: the detection program, ``findFaces(detection=…)``,
+    ``predict_device`` and ``rois_median_depth`` on its boxes. Launches a
+    tier-2 frame: K2 3 (2 detection, 1 cubic), K3 1. The medians on the card
+    equal the CPU's on the same map (nan for an empty box); the map lies
+    within the 1e-3 gate of the CPU plain path's; the medians' time."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.ops.sampling import rois_median_depth
+    from depth_estimation_tpu_torch.runtime.fused import FusedDetectionRunner
+
+    t_phase = time.perf_counter()
+    small = DepthEstimator("MiDaS_small", seed=0, device="cuda", verbose=False)
+    det = make_face_detector(weights, 0.0)
+    runner = FusedDetectionRunner(det)
+    runner(frame)
+    small.predict_device(frame)  # set-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    boxes, scores, valid = runner(frame)[:3]
+    img, bboxes = det.findFaces(frame.copy(), detection=(boxes, scores, valid))
+    depth = small.predict_device(img)
+    boxes_yxyx = torch.tensor([[b["bbox"][1], b["bbox"][0], b["bbox"][1] + b["bbox"][3], b["bbox"][0] + b["bbox"][2]]
+                               for b in bboxes], dtype=torch.int32, device="cuda")
+    ones = torch.ones(len(bboxes), dtype=torch.bool, device="cuda")
+    meds = rois_median_depth(depth, boxes_yxyx, ones)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"multi_head_attention": 0, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+    check(len(bboxes) > 0, f"{phase}: no boxes on a hit")
+    cpu_meds = rois_median_depth(depth.cpu(), boxes_yxyx.cpu(), ones.cpu())
+    check(torch.equal(meds.cpu().isnan(), cpu_meds.isnan()) and bool(
+        (meds.cpu() == cpu_meds)[~cpu_meds.isnan()].all()), f"{phase}: medians {meds.cpu()} != {cpu_meds}")
+    cpu_small = DepthEstimator("MiDaS_small", params={k: v.cpu() for k, v in small.model.state_dict().items()},
+                               device="cpu", verbose=False)
+    gpu_map, cpu_map = depth.cpu().numpy(), cpu_small.predict(img)
+    scale = float(np.abs(cpu_map).max())
+    rel = float(np.abs(gpu_map - cpu_map).max()) / scale
+    check(np.isfinite(gpu_map).all() and scale > 0 and rel < 1e-3, f"{phase}: map max abs-rel {rel}")
+    emit(phase, model="MiDaS_small", src_hw=list(frame.shape[:2]), boxes=len(bboxes),
+         empty_boxes=int(cpu_meds.isnan().sum()), launches=counts, map_max_abs_rel=rel,
+         medians_ms=time_ms(lambda: rois_median_depth(depth, boxes_yxyx, ones), reps=10, inner=5),
+         seconds=time.perf_counter() - t_phase)
+
+
+def profile_detection(weights, frame, phase="detection_profile", n=8):
+    """One detection program at a time (``FusedDetectionRunner``, batch 1,
+    the frame's copy in and the packed row's copy out included): host ms a
+    program, device busy ms and idle share, device kernels and
+    ``cudaLaunchKernel`` calls a program, the largest kernels."""
+    from depth_estimation_tpu_torch.runtime.fused import FusedDetectionRunner
+
+    t_phase = time.perf_counter()
+    runner = FusedDetectionRunner(make_face_detector(weights))
+    program_ms, busy_ms, kernels_run, launches, rows = program_profile(lambda: runner(frame), n)
+    emit(phase, src_hw=list(frame.shape[:2]), batch=1, program_ms=program_ms, device_busy_ms_per_program=busy_ms,
+         device_idle_share=max(0.0, 1 - busy_ms / program_ms), device_kernels_per_program=kernels_run,
+         cuda_launch_calls_per_program=launches, seconds=time.perf_counter() - t_phase,
+         top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
+              for k, t, c in rows[:10]])
+
+
+def run_staged_stream(est, weights, out_path, frames=8, phase="staged_stream"):
+    """``FusedVidStream(fused=False)`` (``--no-fused``) with ``est`` over
+    ``synthetic:8x480x640`` after one untimed frame (set-up): launches a
+    frame STAGED_PER_FRAME (the depth program's K1 24, K2 1, K3 1 and
+    findIris's BlazeFace K2 1), plus one K2 for each staged ``findBody`` (the
+    body route)."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.stream import FusedVidStream
+
+    t_phase = time.perf_counter()
+    det = make_detector(weights)
+    vs = FusedVidStream(est, det, det.face, f"synthetic:{frames}x480x640", out_path, verbose=False, fused=False)
+    zero = np.zeros((480, 640, 3), np.uint8)
+    est.predict_device(zero)
+    make_detector(weights).findIris(zero)  # set-up, on a detector of its own
+    staged = []
+    find_body = det.findBody
+    det.findBody = lambda img: (staged.append(1), find_body(img))[1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    vs.stream()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {name: n * frames for name, n in STAGED_PER_FRAME.items()}
+    want["fused_preprocess"] += len(staged)
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+    check(len(staged) == vs.route_counts["body"] and sum(vs.route_counts.values()) == frames,
+          f"{phase}: routes {vs.route_counts}, staged findBody {len(staged)}")
+    check(os.path.getsize(out_path) > 0, f"{out_path} is empty")
+    s = vs.timer.summary()
+    emit(phase, model=est.model_type, frames=frames, fps=frames / wall, ms_per_frame=wall / frames * 1e3,
+         depth_p50_ms=s["depth"]["p50_ms"], iris_p50_ms=s["iris"]["p50_ms"], routes=vs.route_counts,
+         launches=counts, launches_per_frame=STAGED_PER_FRAME, staged_find_body=len(staged),
+         avi_bytes=os.path.getsize(out_path), seconds=time.perf_counter() - t_phase)
+    return counts
 
 
 def main():
@@ -756,6 +1019,14 @@ def main():
     del cpu_est
     profile_fused(est, weights, frame)
     profile_fused(est, weights, frame, batch=MICROBATCH)
+    # the staged loop (--no-fused) on the same DPT_Large, then the detection-only path
+    with tempfile.TemporaryDirectory() as tmp:
+        staged_launches = run_staged_stream(est, weights, os.path.join(tmp, "staged.avi"))
+        detection_launches = run_detection_stream(weights, os.path.join(tmp, "detection.avi"))
+    detection_hold(weights, frame, 0.0, "hit")
+    detection_hold(weights, frame, 2.0, "miss")
+    detection_depth(weights, frame)
+    profile_detection(weights, frame)
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
     midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
@@ -791,7 +1062,8 @@ def main():
 
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
-                "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches}
+                "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
+                "detection": detection_launches, "staged_iris": staged_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -801,7 +1073,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
-              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches, ("dpt_large", "dpt_hybrid", "fused_iris"),
+              "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
+              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris"),
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
@@ -812,7 +1085,8 @@ def main():
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
               per_shape={**{key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
                             for key in resize_shapes},
-                         # the linear route: one launch of each a fused program (per_path.fused_iris: 3 a frame)
+                         # the linear route: one launch of each a fused program (per_path.fused_iris: 3 a
+                         # frame) and a detection program (per_path.detection: 2 a frame)
                          **{key: {"method": "linear", **{k: pre_linear[key][k] for k in K23_KEYS}}
                             for key in DETECTOR_INPUTS}}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",

@@ -9,14 +9,17 @@ the caller asks for ``device="cpu"``.
 Ported so far: the depth-only video path (``DepthEstimator``, ``VidStream``,
 ``python -m depth_estimation_tpu_torch``) with all four families,
 ``DPT_Large``, ``DPT_Hybrid``, ``MiDaS_small`` and ``MiDaS`` (v2.1 Large),
-the hub's ``transforms``, and the fused iris/pose + depth path (``FaceDet``,
+the hub's ``transforms``, the fused iris/pose + depth path (``FaceDet``,
 ``PersonDetector``, ``runtime.stream.FusedVidStream``,
-``python -m depth_estimation_tpu_torch.midas_mediapipe``).
+``python -m depth_estimation_tpu_torch.midas_mediapipe``, fused or staged)
+and the detection-only distance pipeline (``FaceDetector``,
+``python -m depth_estimation_tpu_torch.depth_by_detection``).
 """
 
+from depth_estimation_tpu_torch.detect.face_detector import FaceDetector
 from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.geometry.face import FaceDet
 from depth_estimation_tpu_torch.runtime.stream import VidStream
 
-__all__ = ["DepthEstimator", "FaceDet", "PersonDetector", "VidStream"]
+__all__ = ["DepthEstimator", "FaceDet", "FaceDetector", "PersonDetector", "VidStream"]

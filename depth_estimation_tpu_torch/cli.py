@@ -4,7 +4,7 @@ write raw-cast depth frames to an MJPG .avi.
 
 Usage:
     python -m depth_estimation_tpu_torch [--model-type DPT_Large]
-        [--src VIDEO|synthetic:NxHxW] [--output out.avi] [--device cuda|cpu]
+        [--src VIDEO|synthetic:NxHxW] [--output out.avi] [--trace [DIR]] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import argparse
 
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.runtime.stream import VidStream
+from depth_estimation_tpu_torch.runtime.tracing import DEFAULT_DIR, maybe_trace
 
 
 def main(argv=None):
@@ -30,6 +31,8 @@ def main(argv=None):
     parser.add_argument("--microbatch", type=int, default=1,
                         help="frames per frame program (same output, ~K frames more latency)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--trace", nargs="?", const=DEFAULT_DIR, default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the run (Chrome trace format) into DIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain PyTorch versions")
     args = parser.parse_args(argv)
@@ -37,7 +40,10 @@ def main(argv=None):
     midas = DepthEstimator(args.model_type, dtype=args.dtype, device=args.device)
     video_stream = VidStream(midas, args.src, args.output, verbose=not args.quiet,
                              start_frame=args.start_frame, microbatch=args.microbatch)
-    video_stream.update()
+    with maybe_trace(args.trace is not None, args.trace) as tdir:
+        video_stream.update()
+    if tdir:
+        print(f"Trace written to {tdir}")
     summary = video_stream.timer.summary()
     if "depth" in summary:
         s = summary["depth"]

@@ -1,13 +1,14 @@
 """Fused iris/pose + depth pipeline, mirroring the reference's
 midas_mediapipe.py (midas_mediapipe.py:163-187): calibrate a ``FaceDet``
 from the credit-card endpoints, build the depth estimator and the person
-detector, and stream a video through the fused frame program, writing the
-annotated frame and the depth frame side by side.
+detector, and stream a video through the fused frame program (or, with
+``--no-fused``, the staged loop: the depth program, then ``findIris``, each
+frame), writing the annotated frame and the depth frame side by side.
 
 Usage:
     python -m depth_estimation_tpu_torch.midas_mediapipe [--model-type DPT_Large]
-        [--src VIDEO|synthetic:NxHxW] [--output out.avi] [--microbatch K]
-        [--dtype float32|bfloat16] [--device cuda|cpu]
+        [--src VIDEO|synthetic:NxHxW] [--output out.avi] [--no-fused] [--microbatch K]
+        [--dtype float32|bfloat16] [--trace [DIR]] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.geometry.face import FaceDet
 from depth_estimation_tpu_torch.runtime.stream import FusedVidStream as VidStream
+from depth_estimation_tpu_torch.runtime.tracing import DEFAULT_DIR, maybe_trace
 
 
 def main(argv=None):
@@ -32,10 +34,14 @@ def main(argv=None):
     parser.add_argument("--output", default="midas_output.avi")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--start-frame", type=int, default=0, help="resume from frame N")
+    parser.add_argument("--no-fused", action="store_true",
+                        help="run depth and detection as separate programs each frame (the staged loop)")
     parser.add_argument("--microbatch", type=int, default=1,
                         help="frames per fused frame program (for file-to-file runs; ~K frames more latency)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                         help="the depth network's type; the detector nets run in float32")
+    parser.add_argument("--trace", nargs="?", const=DEFAULT_DIR, default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the run (Chrome trace format) into DIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain PyTorch versions")
     args = parser.parse_args(argv)
@@ -46,8 +52,11 @@ def main(argv=None):
     estimator = DepthEstimator(args.model_type, dtype=args.dtype, device=args.device)
     detector = PersonDetector(face, device=args.device)
     video_stream = VidStream(estimator, detector, face, args.src, args.output, verbose=not args.quiet,
-                             start_frame=args.start_frame, microbatch=args.microbatch)
-    video_stream.stream()
+                             fused=not args.no_fused, start_frame=args.start_frame, microbatch=args.microbatch)
+    with maybe_trace(args.trace is not None, args.trace) as tdir:
+        video_stream.stream()
+    if tdir:
+        print(f"Trace written to {tdir}")
 
 
 if __name__ == "__main__":

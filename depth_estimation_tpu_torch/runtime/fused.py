@@ -45,10 +45,9 @@ from depth_estimation_tpu_torch.detect.circle import min_enclosing_circle_torch
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
 from depth_estimation_tpu_torch.ops.postprocess import to_video_frame_u8
-from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear_rect
+from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear_rect, to_int32, u8_to_01
 
 FACE_INPUT, MESH_INPUT, POSE_INPUT = 128, 192, 256
-_INT32_MAX_F32 = 2147483520.0  # the largest float32 below 2**31
 
 
 def blazeface_branch(face_net, anchors: torch.Tensor, thresh: float, frames: torch.Tensor):
@@ -72,19 +71,15 @@ def crop_box(boxes: torch.Tensor, h: int, w: int):
     return x0, x1, y0, y1
 
 
-def to_int32(x: torch.Tensor) -> torch.Tensor:
-    """Truncate to int32, clamped into its range first (a cast of a float
-    outside it is undefined in torch)."""
-    return torch.trunc(x).nan_to_num(0.0).clamp(-2.0 ** 31, _INT32_MAX_F32).to(torch.int32)
-
-
-def mesh_points(mesh_net, frames: torch.Tensor, x0, x1, y0, y1):
-    """FaceMesh+iris on each frame's (x0, y0)–(x1, y1) crop of the /255 RGB
-    frame, landmarks mapped to frame pixels → points (B, 478, 2) float32,
-    score (B,). The mesh is their truncating int cast (``to_int32``), as the
-    host path's ``.astype(int)``."""
+def mesh_points(mesh_net, frames: torch.Tensor, x0, x1, y0, y1, pixels=bgr_u8_to_rgb01):
+    """FaceMesh+iris on each frame's (x0, y0)–(x1, y1) crop, landmarks mapped
+    to frame pixels → points (B, 478, 2) float32, score (B,). ``pixels``
+    maps the gathered u8 BGR bytes to the mesh's input: the /255 RGB frame
+    (``bgr_u8_to_rgb01``), or the /255 BGR frame (``u8_to_01``), which
+    ``FaceDetector`` feeds when faithful. The mesh is the points' truncating
+    int cast (``to_int32``), as the host path's ``.astype(int)``."""
     box = torch.stack([x0, y0, x1 - x0, y1 - y0], dim=-1)
-    crop = crop_resize_bilinear_rect(frames, box, (MESH_INPUT, MESH_INPUT), pixels=bgr_u8_to_rgb01)
+    crop = crop_resize_bilinear_rect(frames, box, (MESH_INPUT, MESH_INPUT), pixels=pixels)
     lm, score = mesh_net(crop.permute(0, 3, 1, 2).contiguous())
     sx, sy = ((x1 - x0) / float(MESH_INPUT))[:, None], ((y1 - y0) / float(MESH_INPUT))[:, None]
     return torch.stack([x0[:, None] + lm[..., 0] * sx, y0[:, None] + lm[..., 1] * sy], dim=-1), score
@@ -211,3 +206,102 @@ class FusedFrameRunner:
         """One (H, W, 3) frame; ``fallback_pts`` an optional (2, 2) array."""
         pts = None if fallback_pts is None else np.asarray(fallback_pts, np.int32)[None]
         return {k: v[0] for k, v in self.batched(img_u8[None], pts).items()}
+
+
+# -- packed outputs: one device→host copy ------------------------------------------------
+
+# A frame's small outputs of a program, packed into one int32 row (float32
+# fields bit-cast), in this order: (name, shape, dtype)
+IRIS_FIELDS = (("boxes", (16, 16), np.float32), ("scores", (16,), np.float32), ("valid", (16,), np.bool_),
+               ("mesh", (478, 2), np.int32), ("mesh_score", (), np.float32), ("l_center", (2,), np.float32),
+               ("l_radius", (), np.float32), ("r_center", (2,), np.float32), ("r_radius", (), np.float32),
+               ("pose_lm", (33, 5), np.float32), ("pose_score", (), np.float32),
+               ("iris_sample", (), np.float32), ("fallback_sample", (), np.float32),
+               ("ears_sample", (), np.float32))
+DETECTION_FIELDS = (("boxes", (16, 16), np.float32), ("scores", (16,), np.float32), ("valid", (16,), np.bool_),
+                    ("mesh", (478, 2), np.int32), ("pose_lm", (33, 5), np.float32), ("pose_score", (), np.float32))
+
+
+def pack(out: Dict[str, torch.Tensor], fields) -> torch.Tensor:
+    """The ``fields`` of a batch's outputs → (B, L) int32."""
+    b = out["valid"].shape[0]
+    parts = []
+    for name, _shape, dtype in fields:
+        t = out[name].reshape(b, -1)
+        parts.append(t.contiguous().view(torch.int32) if dtype == np.float32 else t.to(torch.int32))
+    return torch.cat(parts, dim=1)
+
+
+def unpack(row: np.ndarray, fields) -> dict:
+    """One frame's (L,) int32 row → its fields as numpy values."""
+    out, i = {}, 0
+    for name, shape, dtype in fields:
+        n = int(np.prod(shape))
+        v = row[i:i + n]
+        v = v.view(np.float32) if dtype == np.float32 else v.astype(dtype)
+        out[name] = v.reshape(shape) if shape else v[0]
+        i += n
+    return out
+
+
+# -- the detection-only program (depth_by_detection.py) ---------------------------------
+
+
+def make_fused_detection_frame_fn(detector, in_hw: Tuple[int, int]):
+    """JAX ``make_fused_detection_frame_fn``: the detection-only pipeline's
+    whole detector stack (depth_by_detection.py:196-287) as one program on B
+    frames of u8 BGR already on the device, with no host sync inside →
+    a dict of (B, …) tensors: ``boxes`` (16, 16), ``scores`` (16,),
+    ``valid`` (16,), ``mesh`` (478, 2) int32 frame pixels (tier 1),
+    ``pose_lm`` (33, 5) in 256-crop units and ``pose_score`` (tier 3).
+
+    One BlazeFace pass (K2 linear to 128²) feeds all three tiers. JAX's
+    ``lax.cond`` on ``valid[0]`` chooses FaceMesh+iris on the face crop or
+    BlazePose (K2 linear to 256²); here both run and ``_keep`` keeps one,
+    with JAX's zeros for the other (mesh zeros on a miss, pose zeros and
+    score 0 on a hit). When ``detector.faithful`` the mesh reads the frame's
+    BGR bytes /255, unswapped, as ``FaceDetector.findIris`` feeds it
+    (depth_by_detection.py:67-75); otherwise the RGB frame. ``detector``
+    is a ``FaceDetector``."""
+    impl = detector._impl
+    h, w = int(in_hw[0]), int(in_hw[1])
+    feed = u8_to_01 if detector.faithful else bgr_u8_to_rgb01
+    thresh = detector.minDetectionCon
+
+    def fused(frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if tuple(frames.shape[1:3]) != (h, w):
+            raise ValueError(f"frames of {tuple(frames.shape[1:3])} given to the {(h, w)} program")
+        with torch.inference_mode(), full_f32():
+            boxes, scores, valid = blazeface_branch(impl._face_det, impl._face_anchors, thresh, frames)
+            points, _score = mesh_points(impl._mesh, frames, *crop_box(boxes, h, w), pixels=feed)
+            pose_lm, pose_score = pose_branch(impl._pose, frames)
+            hit = valid[:, 0]
+            return {"boxes": boxes, "scores": scores, "valid": valid, "mesh": _keep(hit, to_int32(points), True),
+                    "pose_lm": _keep(hit, pose_lm, False), "pose_score": _keep(hit, pose_score, False)}
+
+    return fused
+
+
+class FusedDetectionRunner:
+    """Caches the detection program per source size; one program a frame for
+    the three-tier pipeline. ``__call__(img_u8)`` returns host numpy
+    ``(boxes, scores, valid, mesh, pose_lm, pose_score)`` through one
+    device→host copy of all outputs packed in one row (JAX: one
+    ``device_get``)."""
+
+    def __init__(self, detector):
+        self.detector = detector
+        self._cache = {}
+
+    def program(self, hw):
+        hw = (int(hw[0]), int(hw[1]))
+        if hw not in self._cache:
+            self._cache[hw] = make_fused_detection_frame_fn(self.detector, hw)
+        return self._cache[hw]
+
+    def __call__(self, img_u8: np.ndarray):
+        frames = torch.from_numpy(np.ascontiguousarray(img_u8)[None]).to(self.detector.device)
+        with torch.inference_mode():
+            row = pack(self.program(img_u8.shape[:2])(frames), DETECTION_FIELDS)[0].cpu().numpy()
+        out = unpack(row, DETECTION_FIELDS)
+        return tuple(out[name] for name, _shape, _dtype in DETECTION_FIELDS)

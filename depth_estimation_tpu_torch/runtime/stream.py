@@ -28,7 +28,8 @@ from statistics import median
 import numpy as np
 import torch
 
-from depth_estimation_tpu_torch.ops.postprocess import merge_gray3, side_by_side
+from depth_estimation_tpu_torch.ops.postprocess import merge_gray3, side_by_side, to_video_frame
+from depth_estimation_tpu_torch.runtime.fused import IRIS_FIELDS, FusedFrameRunner, pack, unpack
 from depth_estimation_tpu_torch.runtime.logging_utils import JsonLogger
 from depth_estimation_tpu_torch.runtime.timing import StageTimer
 from depth_estimation_tpu_torch.runtime.video import (
@@ -194,37 +195,6 @@ class VidStream:
 
 # -- the fused iris/pose + depth loop ------------------------------------------
 
-# A frame's small outputs of the fused program, packed into one int32 row
-# (float32 fields bit-cast), in this order: (name, shape, dtype)
-_PACKED = (("boxes", (16, 16), np.float32), ("scores", (16,), np.float32), ("valid", (16,), np.bool_),
-           ("mesh", (478, 2), np.int32), ("mesh_score", (), np.float32), ("l_center", (2,), np.float32),
-           ("l_radius", (), np.float32), ("r_center", (2,), np.float32), ("r_radius", (), np.float32),
-           ("pose_lm", (33, 5), np.float32), ("pose_score", (), np.float32), ("iris_sample", (), np.float32),
-           ("fallback_sample", (), np.float32), ("ears_sample", (), np.float32))
-
-
-def _pack(out) -> torch.Tensor:
-    """The ``_PACKED`` fields of a batch's outputs → (B, L) int32."""
-    b = out["valid"].shape[0]
-    parts = []
-    for name, _shape, dtype in _PACKED:
-        t = out[name].reshape(b, -1)
-        parts.append(t.contiguous().view(torch.int32) if dtype == np.float32 else t.to(torch.int32))
-    return torch.cat(parts, dim=1)
-
-
-def _unpack(row: np.ndarray) -> dict:
-    """One frame's (L,) int32 row → its fields as numpy values."""
-    out, i = {}, 0
-    for name, shape, dtype in _PACKED:
-        n = int(np.prod(shape))
-        v = row[i:i + n]
-        v = v.view(np.float32) if dtype == np.float32 else v.astype(dtype)
-        out[name] = v.reshape(shape) if shape else v[0]
-        i += n
-    return out
-
-
 class _FusedFetch:
     """A tick's device→host copies, queued at dispatch: the packed outputs
     and the u8 output frames (two pinned non-blocking copies), waited on
@@ -232,7 +202,7 @@ class _FusedFetch:
 
     def __init__(self, out):
         with torch.inference_mode():
-            parts = (_pack(out), out["vis_u8"])
+            parts = (pack(out, IRIS_FIELDS), out["vis_u8"])
         self._event = None
         if parts[0].is_cuda:
             self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
@@ -248,12 +218,12 @@ class _FusedFetch:
         if self._event is not None:
             self._event.synchronize()
         packed, vis = (t.numpy() for t in self._host)
-        return [{**_unpack(packed[j]), "vis_u8": vis[j]} for j in range(len(packed))]
+        return [{**unpack(packed[j], IRIS_FIELDS), "vis_u8": vis[j]} for j in range(len(packed))]
 
 
 class FusedVidStream:
     """Fused iris/pose + depth stream (reference: midas_mediapipe.py:11-159),
-    a copy of the JAX package's ``FusedVidStream`` in its fused mode.
+    a copy of the JAX package's ``FusedVidStream``.
 
     Each tick reads K = ``microbatch`` frames (1 per frame) and dispatches
     one fused frame program (``runtime/fused.py``): depth, face detection,
@@ -263,17 +233,27 @@ class FusedVidStream:
     face state filled, a depth sample recorded, the iris or body path taken,
     the HUD drawn and the side-by-side frame written. Body-fallback
     sampling points are up to K·``pipeline_depth`` frames stale, as in the
-    JAX loop (docs/PARITY.md)."""
+    JAX loop (docs/PARITY.md).
+
+    ``fused=False`` is the staged loop (JAX stream.py:338-361, the
+    reference's own order): each frame, the depth program and a copy of its
+    f32 map to the host (stage ``depth``), ``detector.findIris`` (stage
+    ``iris``), ``face.get_depth`` on the host map, and the iris or body
+    path, synchronously."""
 
     def __init__(self, estimator, detector, face, src=None, output=None, verbose: bool = True, *,
-                 start_frame: int = 0, retries: int = 2, pipeline_depth: int = 2, microbatch: int = 1):
+                 fused: bool = True, start_frame: int = 0, retries: int = 2, pipeline_depth: int = 2,
+                 microbatch: int = 1):
         """pipeline_depth: ticks in flight before the oldest is completed (1
-        is synchronous, the reference's order). microbatch: frames a program.
-        The device samples are ``FaceDet.get_depth``'s faithful ones, so
-        ``face`` must be faithful."""
-        from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
-
-        if not getattr(face, "faithful", True):
+        is synchronous, the reference's order). microbatch: frames a program
+        (the fused loop only). The fused program's samples are
+        ``FaceDet.get_depth``'s faithful ones, so there ``face`` must be
+        faithful; the staged loop samples on the host with either."""
+        self.fused = bool(fused)
+        self.microbatch = max(1, int(microbatch))
+        if not self.fused and self.microbatch > 1:
+            raise ValueError("microbatch>1 requires the fused pipeline")
+        if self.fused and not getattr(face, "faithful", True):
             raise ValueError("FusedVidStream samples depth as the faithful FaceDet does; "
                              "a faithful=False FaceDet is not supported")
         self.detector = detector
@@ -282,8 +262,7 @@ class FusedVidStream:
         self.video = PrefetchSource(ResilientSource(open_source(src), retries=retries))
         self.start_frame = int(start_frame)
         self.pipeline_depth = max(1, int(pipeline_depth))
-        self.microbatch = max(1, int(microbatch))
-        self._runner = FusedFrameRunner(estimator, detector)
+        self._runner = FusedFrameRunner(estimator, detector) if self.fused else None
         self._fused_pose = None  # the current frame's pose landmarks from the program
         self.FPS = 1 / 30
         self.FPS_MS = int(self.FPS * 1000)
@@ -306,6 +285,8 @@ class FusedVidStream:
             if not ok:
                 break
             self.cnt += 1
+        if not self.fused:
+            return self._stream_staged()
         K = self.microbatch
         inflight = deque()  # (fetch, frames, first frame number, had_pts, t_dispatch, cpu_dispatch)
         eof = open_error = False
@@ -345,7 +326,42 @@ class FusedVidStream:
                 self._complete(inflight.popleft())
         while inflight:
             self._complete(inflight.popleft())
-        if not open_error:
+        self._end(report=not open_error)
+
+    def _stream_staged(self):
+        """The staged loop: one frame at a time, depth then findIris, each a
+        program of its own, then the host half."""
+        open_error = False
+        while True:
+            if not self.video.is_opened():
+                print("Error opening file.")
+                print(f"Sucessfully read {self.cnt} out of {self.video.frame_count} frames.")
+                open_error = True
+                break
+            self.status, self.frame = self.video.read()
+            if not self.status:
+                break
+            self.cnt += 1
+            if self.verbose:
+                print(f"Frame: {self.cnt}")
+            self.face.mesh = None  # per-frame detection reset (:51)
+            self._fused_pose = None
+            with self.timer.stage("depth"):
+                depth_frame = self.estimator.predict_device(self.frame).cpu().numpy()
+            with self.timer.stage("iris"):
+                self.detector.findIris(self.frame)
+            # sampling falls back to the stored body head points when there is
+            # no mesh; on the first frames neither may exist yet (the
+            # reference would crash on a face-less first frame, face.py:112)
+            if self.face.mesh is not None or self.face.head_pts is not None:
+                self.face.get_depth(depth_frame)
+                self.face.rel2abs()
+            self._log_frame(self.cnt)
+            self._route_frame(to_video_frame(depth_frame))
+        self._end(report=not open_error)
+
+    def _end(self, report: bool):
+        if report:
             self.timer.report()  # end-of-stream report (midas_mediapipe.py:118-122)
         dropped = getattr(self.video, "frames_dropped", 0)
         if dropped and self.verbose:
