@@ -18,7 +18,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    three TF32 products for each f32 one at 495 TFLOP/s, and its f32-FMA
    bound is kept beside it; otherwise the rate of the input type). K1 is
    checked in f32 and in bf16 at (1|4, 16, 769, 64) and (1, 16, 577, 64)
-   and timed in both at (1, 16, 769, 64), and at DPT_Hybrid's 12 heads,
+   and timed in both at (1, 16, 769, 64), checked in f32 at the servers'
+   (8, 16, 769, 64), and at DPT_Hybrid's 12 heads,
    (1|4, 12, 769, 64), checked in both and timed in f32; K4 (grouped 3×3 conv) is checked
    and timed at the four MiDaS v2.1 conv2 shapes in f32 (3xTF32 on the tensor
    cores: bound at 495 / 3 TFLOP/s, the f32-FMA bound beside it) and in bf16
@@ -28,7 +29,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    shapes (480×640 u8 → 384×512 or 192×256, and back to 480×640), and K2's
    linear route at the detectors' inputs (→ 128×128, mean = std = 0.5, and
    → 256×256, mean 0, std 1; atol 1e-5), each with
-   its tiling printed, at batch 1, and checked at batch 4; K3 also on its u8
+   its tiling printed, at batch 1, and checked at batch 4 (K2 cubic and K3
+   on DPT_Large's shapes also at the servers' batch of 8); K3 also on its u8
    route (the stream's wrap-around cast fused in) against ``wraparound_u8``
    of the plain version, bytes differing only where the f32 map lies within
    1e-3 of an integer, timed beside K3 f32 followed by ``wraparound_u8``;
@@ -92,11 +94,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    medians on the card equal to the CPU's on the same map, the map within
    1e-3 of the CPU plain path's); one program's profile. Each prints its
    seconds.
+14. server, server_hold, bucketed_server, fused_server, multistream,
+   serve_cli — the serving surface on the DPT_Large of phase 4 (and
+   ``detector_weights(seed=0)``): ``DepthServer`` (480×640, max_batch 8,
+   warmed, 4 client threads × 8 requests; each result equal to the frame
+   program on a batch of 8, or by the u8 rule; launches a dispatch K1 24,
+   K2 1, K3 1; requests/s, p50/p90 submit→result; server_profile, phase 6
+   at its batch of 8); its f32 output at
+   240×320 against the CPU plain path (1e-3); ``BucketedDepthServer`` with
+   480×640 and 240×320 clients at once, two dispatcher threads running
+   programs together (results as in ``server``, stats a bucket, a third
+   size refused); ``FusedDepthServer`` (max_batch 4, 12 requests; each dict
+   equal to ``FusedFrameRunner(emit_depth_map=False).batched``; K1 24, K2 3,
+   K3 1 a dispatch); ``MultiStream`` over three 8-frame 480×640 streams and
+   a 5-frame 240×320 one at microbatch 1 and 2 (frames equal to a direct
+   reference loop; launches a bucket's dispatch); ``tools.serve.main`` with
+   DPT_Large, MultiStream mode and ``--online``, its printed lines. Each
+   prints its seconds.
 
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
-fused, detection and staged paths'; K2's and K3's for each network input under ``per_shape``, with
-K2's linear route's shapes),
+fused, detection, staged, server, fused_server and multistream paths'; K2's
+and K3's for each network input under ``per_shape``, with K2's linear
+route's shapes),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
 phase. It imports nothing of JAX or of the JAX package.
@@ -925,6 +945,371 @@ def run_staged_stream(est, weights, out_path, frames=8, phase="staged_stream"):
     return counts
 
 
+# -- the serving surface: DepthServer, BucketedDepthServer, FusedDepthServer, MultiStream, serve ---------
+
+DPT_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+SERVER_BATCH = 8
+
+
+def launches_per(per_program, dispatches):
+    return {name: n * dispatches for name, n in per_program.items()}
+
+
+def direct_u8(est, frames, batch):
+    """The frame program on ``frames`` in batches of ``batch``, the last one
+    padded with its last frame: each frame's u8 map, and a function giving
+    the f32 maps of the same batches (for the u8 rule). A server's rows are
+    computed independently of the other rows of their batch, so a frame's
+    result at one batch shape does not depend on its neighbours."""
+    hw = frames[0].shape[:2]
+
+    def run(output):
+        out = []
+        for i in range(0, len(frames), batch):
+            chunk = list(frames[i:i + batch])
+            chunk += [chunk[-1]] * (batch - len(chunk))
+            out.append(est._batched_fn(hw, output)(np.stack(chunk)).cpu().numpy()[:len(frames[i:i + batch])])
+        return np.concatenate(out)
+
+    return run("u8"), lambda: run("f32")
+
+
+def check_u8_results(got, frames, est, batch, phase):
+    """Each result equal to the direct program's bytes; where not, only where
+    the f32 map lies within 1e-3 of an integer (the port's u8 rule). Returns
+    the count of bytes that differ."""
+    want, f32 = direct_u8(est, frames, batch)
+    got = np.stack(got)
+    check(got.shape == want.shape and got.dtype == np.uint8, f"{phase}: results {got.shape} {got.dtype}")
+    differ = got != want
+    if differ.any():
+        maps = f32()
+        away = int((differ & (np.abs(maps - np.round(maps)) >= 1e-3)).sum())
+        check(away == 0, f"{phase}: {away} bytes differ from the direct program away from an integer")
+    return int(differ.sum())
+
+
+def client_threads(submit, groups):
+    """One client thread for each list of frames in ``groups``, all started
+    together, each submitting its frames at once and then waiting: results
+    in the order of ``groups``' frames, submit→result seconds of each
+    request, and the wall from the first submit to the last result."""
+    import threading
+
+    results = [[None] * len(g) for g in groups]
+    spans, errors = [], []
+    start = threading.Barrier(len(groups))
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            start.wait()
+            futs = []
+            for frame in groups[k]:
+                t_submit = time.perf_counter()
+
+                def stamp(_fut, t=t_submit):
+                    with lock:
+                        spans.append((t, time.perf_counter()))
+
+                fut = submit(frame)
+                fut.add_done_callback(stamp)
+                futs.append(fut)
+            for i, fut in enumerate(futs):
+                results[k][i] = fut.result(timeout=300)
+        except Exception as e:  # raised in the main thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(len(groups))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a client thread did not finish")
+    if errors:
+        raise errors[0]
+    lat = sorted(b - a for a, b in spans)
+    wall = max(b for _, b in spans) - min(a for a, _ in spans)
+    return results, lat, wall
+
+
+def pct(xs, q):
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def serving_frames(n, hw, offset=0):
+    """``n`` distinct synthetic frames of ``hw`` from frame ``offset`` on."""
+    from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+
+    src = SyntheticSource(offset + n, *hw)
+    return [src.read()[1] for _ in range(offset + n)][offset:]
+
+
+def run_server(est, phase="server", clients=4, per_client=8):
+    """``DepthServer(est, (480, 640), max_batch=8, max_delay_ms=5)``, warmed
+    once at its batch, then ``clients`` threads of ``per_client`` requests:
+    each result equal to the direct program (``direct_u8``); frames served,
+    fewer dispatches than requests, launches a dispatch DPT_PER_PROGRAM;
+    requests/s and the p50/p90 of submit→result."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.server import DepthServer
+
+    t_phase = time.perf_counter()
+    frames = serving_frames(clients * per_client, (480, 640))
+    srv = DepthServer(est, (480, 640), max_batch=SERVER_BATCH, max_delay_ms=5)
+    srv.warm()
+    torch.cuda.synchronize()
+    b0, f0 = srv.batches_dispatched, srv.frames_served
+    kernels.reset_launch_counts()
+    groups = [frames[k * per_client:(k + 1) * per_client] for k in range(clients)]
+    results, lat, wall = client_threads(srv.submit, groups)
+    srv.close()
+    counts = kernels.launch_counts()
+    n = clients * per_client
+    dispatches, served = srv.batches_dispatched - b0, srv.frames_served - f0
+    check(served == n and dispatches < n, f"{phase}: {served} frames served in {dispatches} dispatches")
+    check(counts == launches_per(DPT_PER_PROGRAM, dispatches), f"{phase}: launch counts {counts} over {dispatches}")
+    differ = check_u8_results([r for g in results for r in g], frames, est, SERVER_BATCH, phase)
+    emit(phase, model=est.model_type, src_hw=[480, 640], max_batch=SERVER_BATCH, max_delay_ms=5, clients=clients,
+         requests=n, dispatches=dispatches, requests_per_s=n / wall, p50_ms=pct(lat, 0.5) * 1e3,
+         p90_ms=pct(lat, 0.9) * 1e3, wall_s=wall, launches=counts, bytes_differ_from_direct=differ,
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def server_hold(est, cpu_est, phase="server_hold"):
+    """``DepthServer(output="f32")`` at 240×320 against the same weights
+    through the plain paths on the CPU: max abs-rel < 1e-3."""
+    from depth_estimation_tpu_torch.runtime.server import DepthServer
+
+    t_phase = time.perf_counter()
+    frame = serving_frames(1, (240, 320), offset=3)[0]
+    with DepthServer(est, (240, 320), max_batch=SERVER_BATCH, max_delay_ms=5, output="f32") as srv:
+        gpu = srv.submit(frame).result(timeout=300)
+    cpu = cpu_est.predict(frame)
+    scale = float(np.abs(cpu).max())
+    rel = float(np.abs(gpu - cpu).max()) / scale
+    check(gpu.shape == cpu.shape == (240, 320) and gpu.dtype == np.float32, f"{phase}: {gpu.shape} {gpu.dtype}")
+    check(np.isfinite(gpu).all() and scale > 0 and rel < 1e-3, f"{phase}: gpu vs cpu max abs-rel {rel}")
+    emit(phase, model=est.model_type, src_hw=[240, 320], max_batch=SERVER_BATCH, max_abs_rel=rel, depth_max=scale,
+         seconds=time.perf_counter() - t_phase)
+
+
+def run_bucketed_server(est, phase="bucketed_server", per_client=8):
+    """``BucketedDepthServer(est, max_batch=8, max_buckets=2)`` with both
+    buckets warmed, then four client threads at once, two of 480×640 frames
+    and two of 240×320, so both dispatcher threads run frame programs
+    together: every result equal to the direct program (the phase that
+    shows a numerics flag changed under a running program), each bucket's
+    stats, launches over all dispatches, and a third size refused."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.server import BucketedDepthServer
+
+    t_phase = time.perf_counter()
+    sizes = {(480, 640): serving_frames(2 * per_client, (480, 640), offset=2),
+             (240, 320): serving_frames(2 * per_client, (240, 320))}
+    srv = BucketedDepthServer(est, max_batch=SERVER_BATCH, max_delay_ms=5, max_buckets=2)
+    for hw in sizes:
+        srv.warm(hw)
+    torch.cuda.synchronize()
+    before = srv.stats
+    kernels.reset_launch_counts()
+    groups = [f[k * per_client:(k + 1) * per_client] for k in range(2) for f in sizes.values()]
+    results, lat, wall = client_threads(srv.submit, groups)
+    try:
+        srv.submit(np.zeros((120, 160, 3), np.uint8))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "max_buckets" in refused, f"{phase}: a third size was not refused")
+    srv.close()
+    counts = kernels.launch_counts()
+    stats = {hw: (b - before[hw][0], f - before[hw][1]) for hw, (b, f) in srv.stats.items()}
+    check(set(stats) == set(sizes) and all(f == 2 * per_client and b < f for b, f in stats.values()),
+          f"{phase}: bucket stats {stats}")
+    dispatches = sum(b for b, _ in stats.values())
+    check(counts == launches_per(DPT_PER_PROGRAM, dispatches), f"{phase}: launch counts {counts} over {dispatches}")
+    differ = {}
+    for j, (hw, frames) in enumerate(sizes.items()):
+        got = [r for k in (j, j + 2) for r in results[k]]
+        differ[f"{hw[0]}x{hw[1]}"] = check_u8_results(got, frames, est, SERVER_BATCH, phase)
+    emit(phase, model=est.model_type, max_batch=SERVER_BATCH, clients=len(groups),
+         stats={f"{h}x{w}": {"dispatches": b, "frames": f} for (h, w), (b, f) in stats.items()},
+         requests_per_s=4 * per_client / wall, p50_ms=pct(lat, 0.5) * 1e3, p90_ms=pct(lat, 0.9) * 1e3,
+         launches=counts, bytes_differ_from_direct=differ, third_size_refused=refused[:80],
+         seconds=time.perf_counter() - t_phase)
+
+
+def run_fused_server(est, weights, phase="fused_server", clients=3, per_client=4, batch=4):
+    """``FusedDepthServer(est, det, (480, 640), max_batch=4)`` warmed, then
+    ``clients`` threads of ``per_client`` requests: each dict equal, key for
+    key, to ``FusedFrameRunner(est, det, emit_depth_map=False).batched`` on
+    batches of 4 of the same frames (no ``depth`` key); launches a dispatch
+    FUSED_PER_PROGRAM."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
+    from depth_estimation_tpu_torch.runtime.server import FusedDepthServer
+    from depth_estimation_tpu_torch.runtime.stream import FusedFetch
+
+    t_phase = time.perf_counter()
+    det = make_detector(weights)
+    n = clients * per_client
+    frames = serving_frames(n, (480, 640))
+    srv = FusedDepthServer(est, det, (480, 640), max_batch=batch, max_delay_ms=5)
+    srv.warm()
+    torch.cuda.synchronize()
+    b0, f0 = srv.batches_dispatched, srv.frames_served
+    kernels.reset_launch_counts()
+    results, lat, wall = client_threads(srv.submit, [frames[k * per_client:(k + 1) * per_client]
+                                                     for k in range(clients)])
+    srv.close()
+    counts = kernels.launch_counts()
+    dispatches, served = srv.batches_dispatched - b0, srv.frames_served - f0
+    check(served == n and dispatches < n, f"{phase}: {served} frames served in {dispatches} dispatches")
+    check(counts == launches_per(FUSED_PER_PROGRAM, dispatches), f"{phase}: launch counts {counts} over {dispatches}")
+    got = [r for g in results for r in g]
+    runner = FusedFrameRunner(est, det, emit_depth_map=False)
+    want = [d for i in range(0, n, batch) for d in FusedFetch(runner.batched(np.stack(frames[i:i + batch]))).result()]
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(set(g) == set(w) and "depth" not in g and g["vis_u8"].dtype == np.uint8,
+              f"{phase}: request {i} keys {sorted(g)}")
+        bad = [k for k in w if not np.array_equal(g[k], w[k])]
+        check(not bad, f"{phase}: request {i} differs from the direct program in {bad}")
+    emit(phase, model=est.model_type, src_hw=[480, 640], max_batch=batch, clients=clients, requests=n,
+         dispatches=dispatches, hits=int(sum(bool(g["valid"][0]) for g in got)), requests_per_s=n / wall,
+         p50_ms=pct(lat, 0.5) * 1e3, p90_ms=pct(lat, 0.9) * 1e3, launches=counts, keys=sorted(got[0]),
+         seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def drive_fleet(est, fleet, M):
+    """JAX tests/test_multistream.py's reference loop on the port's frame
+    program for a uniform fleet (lists of frames): per stream, its frames'
+    expected outputs in order."""
+    from depth_estimation_tpu_torch.ops.postprocess import merge_gray3
+
+    hw = fleet[0][0].shape[:2]
+    fn = est._batched_fn(hw, output="u8")
+    expected = [[] for _ in fleet]
+    for t in range(0, max(len(f) for f in fleet), M):
+        batch = np.zeros((len(fleet) * M, *hw, 3), np.uint8)
+        valid = []
+        for i, frames in enumerate(fleet):
+            got = frames[t:t + M]
+            for j, f in enumerate(got):
+                batch[i * M + j] = f
+            if 0 < len(got) < M:
+                batch[i * M + len(got):(i + 1) * M] = got[-1]
+            valid.append(len(got))
+        preds = fn(batch).cpu().numpy()
+        for i, m in enumerate(valid):
+            expected[i].extend(merge_gray3(preds[i * M + j]) for j in range(m))
+    return expected
+
+
+def run_multistream(est, M, phase="multistream"):
+    """``MultiStream(est, …)`` over three 8-frame 480×640 streams (distinct
+    frames: each from its own offset into the synthetic sequence) and one
+    5-frame 240×320 stream, after a set-up program of each bucket's batch:
+    every stream's frames equal to a direct reference loop of the frame
+    program, launches a dispatch DPT_PER_PROGRAM (a bucket dispatches while
+    one of its streams is live), ticks and frames/s."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.runtime.multistream import MultiStream
+    from depth_estimation_tpu_torch.runtime.video import FrameSink, FrameSource
+
+    class Collect(FrameSink):
+        def __init__(self):
+            self.frames = []
+
+        def write(self, frame):
+            self.frames.append(frame.copy())
+
+    class Frames(FrameSource):
+        def __init__(self, frames):
+            self._frames, self.height, self.width = list(frames), *frames[0].shape[:2]
+            self.frame_count = float(len(frames))
+
+        def read(self):
+            return (True, self._frames.pop(0)) if self._frames else (False, None)
+
+        def is_opened(self):
+            return True
+
+    t_phase = time.perf_counter()
+    fleets = {(480, 640): [serving_frames(8, (480, 640), offset=5 * k) for k in range(3)],
+              (240, 320): [serving_frames(5, (240, 320))]}
+    for hw, fleet in fleets.items():  # set-up (cuDNN's choice) at each bucket's batch
+        est._batched_fn(hw, "u8")(np.zeros((len(fleet) * M, *hw, 3), np.uint8))
+    streams = [f for fleet in fleets.values() for f in fleet]
+    sinks = [Collect() for _ in streams]
+    ms = MultiStream(est, [Frames(f) for f in streams], sinks, verbose=False, microbatch=M)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ms.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ticks = len(ms.timer.performance["depth"])
+    dispatches = sum(math.ceil(max(len(f) for f in fleet) / M) for fleet in fleets.values())
+    check(ms.counts == [len(f) for f in streams], f"{phase}: counts {ms.counts}")
+    check(ticks == math.ceil(8 / M), f"{phase}: {ticks} ticks")
+    check(counts == launches_per(DPT_PER_PROGRAM, dispatches), f"{phase}: launch counts {counts} over {dispatches}")
+    expected = [e for fleet in fleets.values() for e in drive_fleet(est, fleet, M)]
+    for k, (sink, exp) in enumerate(zip(sinks, expected)):
+        check(len(sink.frames) == len(exp) and all(np.array_equal(g, e) for g, e in zip(sink.frames, exp)),
+              f"{phase}: stream {k} differs from the direct reference loop")
+    frames = sum(ms.counts)
+    emit(phase, model=est.model_type, microbatch=M, streams={f"{h}x{w}": len(f) for (h, w), f in fleets.items()},
+         frames=frames, ticks=ticks, dispatches=dispatches, frames_per_s=frames / wall, wall_s=wall,
+         ms_per_tick=wall / ticks * 1e3, launches=counts, seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+def run_serve_cli(tmp, phase="serve_cli"):
+    """``tools.serve.main`` in this process on DPT_Large (its own random
+    weights from seed 0): in MultiStream mode over two 8-frame 480×640
+    streams into .avi files, and ``--online`` over a 480×640 and a 240×320
+    stream; the lines JAX's ``depth-serve`` prints, and launches whole
+    programs (K1 24, K2 1, K3 1 each)."""
+    import contextlib
+    import io
+    import warnings
+
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.tools import serve
+
+    runs = {"multistream": ["--src", "synthetic:8x480x640", "--src", "synthetic:8x480x640",
+                            "--output", os.path.join(tmp, "serve_a.avi"), "--output", os.path.join(tmp, "serve_b.avi")],
+            "online": ["--src", "synthetic:8x480x640", "--src", "synthetic:6x240x320", "--online"]}
+    want = {"multistream": "Sucessfully read 16 frames over 2 streams.",
+            "online": "Sucessfully read 14 frames over 2 streams."}
+    row = {}
+    for mode, argv in runs.items():
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with warnings.catch_warnings(), contextlib.redirect_stdout(buf):
+            warnings.simplefilter("ignore")
+            serve.main(["--model-type", "DPT_Large", *argv])
+        torch.cuda.synchronize()
+        lines = buf.getvalue().splitlines()
+        counts = kernels.launch_counts()
+        programs = counts["multi_head_attention"] // DPT_PER_PROGRAM["multi_head_attention"]
+        check(want[mode] in lines, f"{phase} {mode}: no line {want[mode]!r} in {lines[-3:]}")
+        check(programs > 0 and counts == launches_per(DPT_PER_PROGRAM, programs),
+              f"{phase} {mode}: launch counts {counts}")
+        if mode == "online":
+            check(any(ln.startswith("Online: 14 requests in ") and "across 2 resolution bucket(s)" in ln
+                      for ln in lines), f"{phase}: no Online line in {lines[-3:]}")
+        else:
+            check(all(os.path.getsize(os.path.join(tmp, f"serve_{x}.avi")) > 0 for x in "ab"), f"{phase}: empty .avi")
+        row[mode] = {"lines": [ln for ln in lines if not ln.startswith("Tick:")], "programs": programs,
+                     "seconds": time.perf_counter() - t0}
+    emit(phase, **row)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -961,10 +1346,12 @@ def main():
     resize_shapes = {"dpt_384x512": (net_hw, DPT_PREPROCESS), "midas_192x256": (midas_hw, SMALL_PREPROCESS)}
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.integers(0, 256, (MICROBATCH, 480, 640, 3), np.uint8)).cuda()
+    frames8 = torch.from_numpy(rng.integers(0, 256, (SERVER_BATCH, 480, 640, 3), np.uint8)).cuda()
     with full_f32():
         att = check_attention(gen, 1, 16, 769, torch.float32, 2e-5, 1e-4, timed=True)
         check_attention(gen, 1, 16, 577, torch.float32, 2e-5, 1e-4, timed=False)
         check_attention(gen, MICROBATCH, 16, 769, torch.float32, 2e-5, 1e-4, timed=False)
+        check_attention(gen, SERVER_BATCH, 16, 769, torch.float32, 2e-5, 1e-4, timed=False)  # the servers' batch
         # bf16: the kernel rounds the unnormalised probabilities to bf16, the plain version the normalised ones
         att16 = check_attention(gen, 1, 16, 769, torch.bfloat16, 1e-2, 1e-2, timed=True)
         check_attention(gen, 1, 16, 577, torch.bfloat16, 1e-2, 1e-2, timed=False)
@@ -980,6 +1367,9 @@ def main():
         for hw, cfg in resize_shapes.values():
             check_preprocess(frames, hw, cfg, timed=False)
             check_resize(gen, hw, (480, 640), batch=MICROBATCH, timed=False)
+        # the servers' batch on DPT_Large (K3 on both routes)
+        check_preprocess(frames8, net_hw, DPT_PREPROCESS, timed=False)
+        check_resize(gen, net_hw, (480, 640), batch=SERVER_BATCH, timed=False)
         # K2's linear route at the fused path's detector inputs: timed at batch 1, checked at the microbatch
         pre_linear = {}
         for key, (hw, mean, std) in DETECTOR_INPUTS.items():
@@ -998,14 +1388,13 @@ def main():
             check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=False, batch=MICROBATCH)
 
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
-    dpt_per_program = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
     with tempfile.TemporaryDirectory() as tmp:
-        launches, fps = run_stream(est, os.path.join(tmp, "depth.avi"), 1, dpt_per_program)
-        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH, dpt_per_program, per_frame_fps=fps)
+        launches, fps = run_stream(est, os.path.join(tmp, "depth.avi"), 1, DPT_PER_PROGRAM)
+        run_stream(est, os.path.join(tmp, "depth_mb.avi"), MICROBATCH, DPT_PER_PROGRAM, per_frame_fps=fps)
     hold(est, DPT_PREPROCESS)
     frame = SyntheticSource(1, 480, 640).read()[1]
     profile_frames(est, frame)
-    profile_frames(bf16_mode(est, frame, 0.05, dpt_per_program), frame, "bf16_profile")
+    profile_frames(bf16_mode(est, frame, 0.05, DPT_PER_PROGRAM), frame, "bf16_profile")
 
     # the fused iris/pose + depth path on the same DPT_Large
     weights = detector_weights(seed=0)
@@ -1016,7 +1405,6 @@ def main():
                              device="cpu", verbose=False)
     fused_hold(est, cpu_est, weights, 0.0, "hit")
     fused_hold(est, cpu_est, weights, 2.0, "miss")
-    del cpu_est
     profile_fused(est, weights, frame)
     profile_fused(est, weights, frame, batch=MICROBATCH)
     # the staged loop (--no-fused) on the same DPT_Large, then the detection-only path
@@ -1027,6 +1415,18 @@ def main():
     detection_hold(weights, frame, 2.0, "miss")
     detection_depth(weights, frame)
     profile_detection(weights, frame)
+    # the serving surface on the same DPT_Large
+    server_launches = run_server(est)
+    profile_frames(est, frame, "server_profile", batch=SERVER_BATCH)
+    server_hold(est, cpu_est)
+    del cpu_est
+    run_bucketed_server(est)
+    fused_server_launches = run_fused_server(est, weights)
+    multistream_launches = run_multistream(est, 1)
+    run_multistream(est, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_serve_cli(tmp)
+    torch.cuda.empty_cache()
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
     midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
@@ -1063,7 +1463,8 @@ def main():
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
                 "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
-                "detection": detection_launches, "staged_iris": staged_launches}
+                "detection": detection_launches, "staged_iris": staged_launches, "server": server_launches,
+                "fused_server": fused_server_launches, "multistream": multistream_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1074,7 +1475,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
-              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris"),
+              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris", "server", "fused_server", "multistream"),
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],

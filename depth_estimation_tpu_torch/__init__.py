@@ -12,14 +12,19 @@ Ported so far: the depth-only video path (``DepthEstimator``, ``VidStream``,
 the hub's ``transforms``, the fused iris/pose + depth path (``FaceDet``,
 ``PersonDetector``, ``runtime.stream.FusedVidStream``,
 ``python -m depth_estimation_tpu_torch.midas_mediapipe``, fused or staged)
-and the detection-only distance pipeline (``FaceDetector``,
-``python -m depth_estimation_tpu_torch.depth_by_detection``).
+the detection-only distance pipeline (``FaceDetector``,
+``python -m depth_estimation_tpu_torch.depth_by_detection``) and the serving
+surface (``MultiStream``, ``DepthServer``, ``FusedDepthServer``,
+``BucketedDepthServer``, ``python -m depth_estimation_tpu_torch.tools.serve``).
 """
 
 from depth_estimation_tpu_torch.detect.face_detector import FaceDetector
 from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
 from depth_estimation_tpu_torch.estimator import DepthEstimator
 from depth_estimation_tpu_torch.geometry.face import FaceDet
+from depth_estimation_tpu_torch.runtime.multistream import MultiStream
+from depth_estimation_tpu_torch.runtime.server import BucketedDepthServer, DepthServer, FusedDepthServer
 from depth_estimation_tpu_torch.runtime.stream import VidStream
 
-__all__ = ["DepthEstimator", "FaceDet", "FaceDetector", "PersonDetector", "VidStream"]
+__all__ = ["BucketedDepthServer", "DepthEstimator", "DepthServer", "FaceDet", "FaceDetector", "FusedDepthServer",
+           "MultiStream", "PersonDetector", "VidStream"]

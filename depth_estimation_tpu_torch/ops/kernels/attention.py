@@ -104,7 +104,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, *strides,
             1.0 / math.sqrt(d), _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(err, "attention kernel launch")
-    multi_head_attention.launches += 1
+    build.count_launch(multi_head_attention)
     return out
 
 

@@ -7,6 +7,12 @@ and the flags, so an edited source is rebuilt and a built one is reused. A
 build may add preprocessor macros (``defines``, passed as ``-D``); the port's
 own libraries take none. The library is loaded with ``ctypes``; every
 pointer and the stream are passed as ``c_void_p``.
+
+``build`` and ``load`` hold one module lock, and each compile writes to a
+temporary file named for its process and thread, so threads that reach a
+kernel's first use together (the servers' dispatchers) build each source
+once. The wrappers count their launches through ``count_launch``, under a
+lock of its own.
 """
 
 from __future__ import annotations
@@ -18,12 +24,16 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, Tuple
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("attention", "resize", "grouped_conv")
+_LOCK = threading.RLock()  # build and load
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,6 +62,11 @@ def build(names: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Dict
     """Compile each named source that is not built yet, one ``nvcc`` per
     source, all started together. Returns each source's compiler output
     (empty for one that was already built); raises if any build fails."""
+    with _LOCK:
+        return _build(tuple(names), tuple(defines))
+
+
+def _build(names: Tuple[str, ...], defines: Tuple[str, ...]) -> Dict[str, str]:
     jobs = {}
     try:
         for name in names:
@@ -59,7 +74,7 @@ def build(names: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Dict
             if out.exists():
                 continue
             BUILD_DIR.mkdir(exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, tmp, out)
@@ -82,11 +97,20 @@ def build(names: Iterable[str] = SOURCES, defines: Tuple[str, ...] = ()) -> Dict
             tmp.unlink(missing_ok=True)
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first if needed."""
-    build((name,), defines)
-    return ctypes.CDLL(str(library_path(name, defines)))
+    key = (name, tuple(defines))
+    with _LOCK:
+        if key not in _LIBS:
+            build((name,), key[1])
+            _LIBS[key] = ctypes.CDLL(str(library_path(name, key[1])))
+        return _LIBS[key]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``; the dispatcher threads launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -83,7 +83,7 @@ def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch
             x.data_ptr(), weight.data_ptr(), out.data_ptr(), b, c, h, w, groups,
             _DTYPES[x.dtype], build.sm_count(x.device.index), torch.cuda.current_stream().cuda_stream)
     build.check(err, "grouped conv kernel launch")
-    grouped_conv3x3.launches += 1
+    build.count_launch(grouped_conv3x3)
     return out
 
 

@@ -211,7 +211,7 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
             *_launch_args(imgs, (h, w), (h_out, w_out), "preprocess", method, False), *scale, *bias,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "preprocess kernel launch")
-    fused_preprocess.launches += 1
+    build.count_launch(fused_preprocess)
     return out
 
 
@@ -253,7 +253,7 @@ def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic
             *_launch_args(planes, (h, w), (h_out, w_out), "resize", method, align_corners),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "resize kernel launch")
-    resize_planes.launches += 1
+    build.count_launch(resize_planes)
     return out if x.dim() == 3 else out[0]
 
 

@@ -34,13 +34,7 @@ import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.config import BODY_HEAD, LEFT_IRIS, RIGHT_IRIS
-from depth_estimation_tpu_torch.detect.anchors import (
-    BLAZEFACE_FRONT,
-    build_anchors,
-    decode_boxes,
-    decode_scores,
-    weighted_nms,
-)
+from depth_estimation_tpu_torch.detect.anchors import decode_boxes, decode_scores, weighted_nms
 from depth_estimation_tpu_torch.detect.circle import min_enclosing_circle_torch
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
@@ -130,20 +124,43 @@ def _keep(hit: torch.Tensor, t: torch.Tensor, on_hit: bool) -> torch.Tensor:
     return torch.where(mask, t, zeros) if on_hit else torch.where(mask, zeros, t)
 
 
-def make_fused_iris_frame_fn(estimator, detector, in_hw: Tuple[int, int]):
-    """JAX ``make_fused_iris_frame_fn(include_pose=True)`` for B frames:
-    fn(frames (B, H, W, 3) u8 on the device, fallback_pts (B, 2, 2) int32)
-    → a dict of (B, …) tensors: ``depth`` (H, W) f32, ``boxes`` (16, 16),
-    ``scores`` (16,), ``valid`` (16,), ``mesh`` (478, 2) int32 frame pixels,
-    ``mesh_score``, ``l_center`` (2,), ``l_radius``, ``r_center``,
-    ``r_radius``, ``pose_lm`` (33, 5) in 256-crop units, ``pose_score``,
-    ``vis_u8`` (H, W), ``iris_sample``, ``fallback_sample`` (at the stored
-    head points) and ``ears_sample`` (at this frame's pose ears). Mesh
-    fields are zeros on a miss, pose fields on a hit; the samples are taken
-    at the zeros all the same."""
+def make_fused_frame_fn(estimator, detector, in_hw: Tuple[int, int]):
+    """JAX ``make_fused_frame_fn``: depth plus BlazeFace and its NMS in one
+    program on B frames of u8 BGR already on the device → ``depth`` (B, H,
+    W) f32, ``boxes`` (B, 16, 16), ``scores`` (B, 16), ``valid`` (B, 16).
+    The ``mesh=False`` runner's program: K2 cubic and linear (128²), the
+    network, K3."""
+    h, w = int(in_hw[0]), int(in_hw[1])
+
+    def fused(frames: torch.Tensor):
+        if tuple(frames.shape[1:3]) != (h, w):
+            raise ValueError(f"frames of {tuple(frames.shape[1:3])} given to the {(h, w)} program")
+        with torch.inference_mode(), estimator._numerics(), full_f32():
+            depth = estimator.depth_branch(frames)
+            return (depth, *blazeface_branch(detector._face_det, detector._face_anchors, detector.minDetectionCon,
+                                             frames))
+
+    return fused
+
+
+def make_fused_iris_frame_fn(estimator, detector, in_hw: Tuple[int, int], include_pose: bool = True,
+                             emit_depth_map: bool = True):
+    """JAX ``make_fused_iris_frame_fn`` for B frames: fn(frames (B, H, W, 3)
+    u8 on the device, fallback_pts (B, 2, 2) int32) → a dict of (B, …)
+    tensors: ``depth`` (H, W) f32 (only when ``emit_depth_map``), ``boxes``
+    (16, 16), ``scores`` (16,), ``valid`` (16,), ``mesh`` (478, 2) int32
+    frame pixels, ``mesh_score``, ``l_center`` (2,), ``l_radius``,
+    ``r_center``, ``r_radius``, ``vis_u8`` (H, W), ``iris_sample``,
+    ``fallback_sample`` (at the stored head points) and, when
+    ``include_pose`` (the port's default; JAX's is False), ``pose_lm`` (33,
+    5) in 256-crop units, ``pose_score`` and ``ears_sample`` (at this
+    frame's pose ears). Mesh fields are zeros on a miss, pose fields on a
+    hit; the samples are taken at the zeros all the same. Without the pose
+    the miss branch is the mesh zeros alone and K2's 256² launch is not
+    made; without the depth map the program computes the same and returns
+    less."""
     h, w = int(in_hw[0]), int(in_hw[1])
     dev = estimator.device
-    anchors = torch.from_numpy(build_anchors(BLAZEFACE_FRONT)).to(dev)
     iris_idx = torch.tensor([LEFT_IRIS, RIGHT_IRIS], device=dev)  # (2 eyes, 4 points)
     ears_idx = torch.tensor(BODY_HEAD, device=dev)
 
@@ -152,58 +169,82 @@ def make_fused_iris_frame_fn(estimator, detector, in_hw: Tuple[int, int]):
             raise ValueError(f"frames of {tuple(frames.shape[1:3])} given to the {(h, w)} program")
         with torch.inference_mode(), estimator._numerics(), full_f32():
             depth = estimator.depth_branch(frames)
-            boxes, scores, valid = blazeface_branch(detector._face_det, anchors, detector.minDetectionCon, frames)
+            boxes, scores, valid = blazeface_branch(detector._face_det, detector._face_anchors,
+                                                    detector.minDetectionCon, frames)
             points, mesh_score = mesh_points(detector._mesh, frames, *crop_box(boxes, h, w))
             mesh = to_int32(points)
             centers, radii = min_enclosing_circle_torch(mesh[:, iris_idx].float())  # both eyes in one fit
             l_c, r_c, l_r, r_r = centers[:, 0], centers[:, 1], radii[:, 0], radii[:, 1]
-            pose_lm, pose_score = pose_branch(detector._pose, frames)
             hit = valid[:, 0]
             mesh, mesh_score, l_c, l_r, r_c, r_r = (_keep(hit, t, True) for t in (mesh, mesh_score, l_c, l_r,
                                                                                    r_c, r_r))
-            pose_lm, pose_score = _keep(hit, pose_lm, False), _keep(hit, pose_score, False)
-            # this frame's ear pixels, mapped as body_from_fused maps them
-            ears = torch.stack([to_int32(pose_lm[:, ears_idx, 0] * (w / 256.0)),
-                                to_int32(pose_lm[:, ears_idx, 1] * (h / 256.0))], dim=-1)
-            return {
-                "depth": depth, "boxes": boxes, "scores": scores, "valid": valid,
+            out = {"depth": depth} if emit_depth_map else {}
+            out.update({
+                "boxes": boxes, "scores": scores, "valid": valid,
                 "mesh": mesh, "mesh_score": mesh_score, "l_center": l_c, "l_radius": l_r,
-                "r_center": r_c, "r_radius": r_r, "pose_lm": pose_lm, "pose_score": pose_score,
+                "r_center": r_c, "r_radius": r_r,
                 "vis_u8": to_video_frame_u8(depth),
                 "iris_sample": sample_iris_depth(depth, l_c, r_c),
                 "fallback_sample": sample_pts_depth(depth, fallback_pts),
-                "ears_sample": sample_pts_depth(depth, ears),
-            }
+            })
+            if include_pose:
+                pose_lm, pose_score = pose_branch(detector._pose, frames)
+                pose_lm, pose_score = _keep(hit, pose_lm, False), _keep(hit, pose_score, False)
+                # this frame's ear pixels, mapped as body_from_fused maps them
+                ears = torch.stack([to_int32(pose_lm[:, ears_idx, 0] * (w / 256.0)),
+                                    to_int32(pose_lm[:, ears_idx, 1] * (h / 256.0))], dim=-1)
+                out.update(pose_lm=pose_lm, pose_score=pose_score, ears_sample=sample_pts_depth(depth, ears))
+            return out
 
     return fused
 
 
 class FusedFrameRunner:
-    """Caches the fused program per source size. ``__call__`` runs one frame
-    and ``batched`` K frames, through the same program (B = 1 or K)."""
+    """JAX ``FusedFrameRunner``: caches the program per source size.
 
-    def __init__(self, estimator, detector):
+    ``mesh=True`` (default): the fused iris program, with BlazePose as the
+    miss branch when ``pose`` (default; needs ``mesh``); ``__call__`` runs
+    one frame and ``batched`` K frames through the same program (B = 1 or
+    K). ``emit_depth_map=False`` drops the f32 map from the outputs (the
+    servers' setting: ``vis_u8`` and the samples stay). ``mesh=False``: the
+    depth + BlazeFace program (``make_fused_frame_fn``), whose ``__call__``
+    returns one frame's ``(depth, boxes, scores, valid)``; its ``batched``
+    raises, as JAX's does."""
+
+    def __init__(self, estimator, detector, mesh: bool = True, pose: bool = True, emit_depth_map: bool = True):
         self.estimator = estimator
         self.detector = detector
+        self.mesh = bool(mesh)
+        self.pose = self.mesh and bool(pose)
+        self.emit_depth_map = bool(emit_depth_map)
         self._cache = {}
 
     def _program(self, hw):
         hw = (int(hw[0]), int(hw[1]))
         if hw not in self._cache:
-            self._cache[hw] = make_fused_iris_frame_fn(self.estimator, self.detector, hw)
+            self._cache[hw] = (make_fused_iris_frame_fn(self.estimator, self.detector, hw, self.pose,
+                                                        self.emit_depth_map) if self.mesh
+                               else make_fused_frame_fn(self.estimator, self.detector, hw))
         return self._cache[hw]
 
     def batched(self, imgs_u8, fallback_pts=None) -> Dict[str, torch.Tensor]:
         """(K, H, W, 3) u8 BGR frames, numpy or a tensor; ``fallback_pts``
-        an optional (K, 2, 2) int array of stored head points."""
+        an optional (K, 2, 2) int array of stored head points. Mesh mode
+        only."""
+        if not self.mesh:
+            raise ValueError("batched dispatch requires mesh=True")
         frames = self.estimator._to_device(imgs_u8)
         k = frames.shape[0]
         pts = np.zeros((k, 2, 2), np.int32) if fallback_pts is None else np.asarray(fallback_pts, np.int32)
         pts = torch.from_numpy(np.ascontiguousarray(pts)).to(frames.device, non_blocking=True)
         return self._program(frames.shape[1:3])(frames, pts)
 
-    def __call__(self, img_u8, fallback_pts=None) -> Dict[str, torch.Tensor]:
-        """One (H, W, 3) frame; ``fallback_pts`` an optional (2, 2) array."""
+    def __call__(self, img_u8, fallback_pts=None):
+        """One (H, W, 3) frame; ``fallback_pts`` an optional (2, 2) array
+        (mesh mode only)."""
+        if not self.mesh:
+            frames = self.estimator._to_device(img_u8[None])
+            return tuple(t[0] for t in self._program(frames.shape[1:3])(frames))
         pts = None if fallback_pts is None else np.asarray(fallback_pts, np.int32)[None]
         return {k: v[0] for k, v in self.batched(img_u8[None], pts).items()}
 

@@ -35,29 +35,34 @@ from depth_estimation_tpu_torch.runtime.timing import StageTimer
 from depth_estimation_tpu_torch.runtime.video import (
     PrefetchSource,
     ResilientSource,
+    needs_prefetch,
     open_sink,
     open_source,
 )
 
 
-class _Fetch:
-    """A device→host copy of one result, queued at dispatch and awaited at
-    completion: the loop's only sync point."""
+class HostFetch:
+    """Device→host copies of some tensors, queued at dispatch into fresh
+    pinned buffers behind one event and awaited together at completion: the
+    only sync point of the loop that makes them. On the CPU the tensors are
+    the result."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor):
         self._event = None
-        if t.is_cuda:
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
+        if tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = t
+            self._host = list(tensors)
 
-    def result(self) -> np.ndarray:
+    def result(self) -> list:
+        """The tensors' values as numpy arrays, in order."""
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return [t.numpy() for t in self._host]
 
 
 class VidStream:
@@ -74,7 +79,7 @@ class VidStream:
         latency, so it suits file→file transcoding, not interactive use."""
         self.estimator = estimator
         self.video = ResilientSource(open_source(src), retries=retries)
-        if prefetch:
+        if prefetch and needs_prefetch(self.video.inner):
             self.video = PrefetchSource(self.video)
         self.start_frame = int(start_frame)
         self.pipeline_depth = max(1, int(pipeline_depth))
@@ -127,7 +132,7 @@ class VidStream:
                 print(f"Frame: {self.cnt}")
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = _Fetch(self.estimator.predict_device_u8(self.frame)[None])
+            fetch = HostFetch(self.estimator.predict_device_u8(self.frame)[None])
             inflight.append((fetch, 1, t0, time.process_time() - c0))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight)
@@ -166,7 +171,7 @@ class VidStream:
                 batch[m:] = batch[m - 1]  # program shape; padding discarded)
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = _Fetch(fn(batch))
+            fetch = HostFetch(fn(batch))
             inflight.append((fetch, m, t0, time.process_time() - c0))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight)
@@ -178,7 +183,7 @@ class VidStream:
         spans and write them."""
         fetch, m, t0, cpu_d = inflight.popleft()
         c0 = time.process_time()
-        grays = fetch.result()
+        grays, = fetch.result()
         self.timer.record_completion("depth", t0, cpu_d + time.process_time() - c0, frames=m)
         for i in range(m):
             self._write_gray(grays[i])
@@ -190,35 +195,29 @@ class VidStream:
 
     # reference alias
     def write_output(self):
-        self._write_gray(_Fetch(self.estimator.predict_device_u8(self.frame)[None]).result()[0])
+        self._write_gray(HostFetch(self.estimator.predict_device_u8(self.frame)[None]).result()[0][0])
 
 
 # -- the fused iris/pose + depth loop ------------------------------------------
 
-class _FusedFetch:
-    """A tick's device→host copies, queued at dispatch: the packed outputs
-    and the u8 output frames (two pinned non-blocking copies), waited on
-    through one event at completion, the loop's only sync point."""
+class FusedFetch:
+    """A fused program's outputs for the host, queued at dispatch: the small
+    outputs packed into one int32 row a frame (``IRIS_FIELDS`` that the
+    program returns), the u8 output frames and, where the program emits it,
+    the f32 depth map, as pinned non-blocking copies behind one event."""
 
     def __init__(self, out):
+        self._fields = tuple(f for f in IRIS_FIELDS if f[0] in out)
+        self._depth = "depth" in out
         with torch.inference_mode():
-            parts = (pack(out, IRIS_FIELDS), out["vis_u8"])
-        self._event = None
-        if parts[0].is_cuda:
-            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in parts]
-            for h, t in zip(self._host, parts):
-                h.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = list(parts)
+            self._fetch = HostFetch(pack(out, self._fields), out["vis_u8"], *([out["depth"]] if self._depth else []))
 
     def result(self):
-        """Each frame's outputs: a dict of numpy values with ``vis_u8`` (H, W)."""
-        if self._event is not None:
-            self._event.synchronize()
-        packed, vis = (t.numpy() for t in self._host)
-        return [{**unpack(packed[j], IRIS_FIELDS), "vis_u8": vis[j]} for j in range(len(packed))]
+        """Each frame's outputs: a dict of numpy values (views of the
+        fetched buffers) with ``vis_u8`` (H, W) and, if emitted, ``depth``."""
+        packed, vis, *depth = self._fetch.result()
+        return [{**unpack(packed[j], self._fields), "vis_u8": vis[j], **({"depth": depth[0][j]} if depth else {})}
+                for j in range(len(packed))]
 
 
 class FusedVidStream:
@@ -247,22 +246,24 @@ class FusedVidStream:
         """pipeline_depth: ticks in flight before the oldest is completed (1
         is synchronous, the reference's order). microbatch: frames a program
         (the fused loop only). The fused program's samples are
-        ``FaceDet.get_depth``'s faithful ones, so there ``face`` must be
-        faithful; the staged loop samples on the host with either."""
+        ``FaceDet.get_depth``'s faithful ones; with a ``faithful=False``
+        face the program also emits its f32 map, which is fetched, and the
+        host samples it (JAX stream.py:257-265)."""
         self.fused = bool(fused)
         self.microbatch = max(1, int(microbatch))
         if not self.fused and self.microbatch > 1:
             raise ValueError("microbatch>1 requires the fused pipeline")
-        if self.fused and not getattr(face, "faithful", True):
-            raise ValueError("FusedVidStream samples depth as the faithful FaceDet does; "
-                             "a faithful=False FaceDet is not supported")
         self.detector = detector
         self.estimator = estimator
         self.face = face
-        self.video = PrefetchSource(ResilientSource(open_source(src), retries=retries))
+        self.video = ResilientSource(open_source(src), retries=retries)
+        if needs_prefetch(self.video.inner):
+            self.video = PrefetchSource(self.video)
         self.start_frame = int(start_frame)
         self.pipeline_depth = max(1, int(pipeline_depth))
-        self._runner = FusedFrameRunner(estimator, detector) if self.fused else None
+        self._device_samples = bool(getattr(face, "faithful", True))
+        self._runner = (FusedFrameRunner(estimator, detector, emit_depth_map=not self._device_samples)
+                        if self.fused else None)
         self._fused_pose = None  # the current frame's pose landmarks from the program
         self.FPS = 1 / 30
         self.FPS_MS = int(self.FPS * 1000)
@@ -320,7 +321,7 @@ class FusedVidStream:
                 pts_arr[:] = [[int(pts[0][0]), int(pts[0][1])], [int(pts[1][0]), int(pts[1][1])]]
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = _FusedFetch(self._runner.batched(batch, fallback_pts=pts_arr))
+            fetch = FusedFetch(self._runner.batched(batch, fallback_pts=pts_arr))
             inflight.append((fetch, frames, self.cnt - len(frames) + 1, had_pts, t0, time.process_time() - c0))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight.popleft())
@@ -392,7 +393,12 @@ class FusedVidStream:
         self.detector.set_fused_mesh(frame, out["mesh"], out["mesh_score"], out["l_center"], out["l_radius"],
                                      out["r_center"], out["r_radius"], found=found)
         self._fused_pose = None if found else (out["pose_lm"], out["pose_score"])
-        if found:
+        if not self._device_samples:  # the host samples the fetched map
+            if self.face.mesh is not None or self.face.head_pts is not None:
+                self.face.get_depth(out["depth"])
+                self.face.rel2abs()
+            sample = None
+        elif found:
             sample = out["iris_sample"]
         elif had_pts:
             sample = out["fallback_sample"]

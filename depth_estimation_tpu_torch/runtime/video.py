@@ -110,6 +110,13 @@ def open_source(src) -> FrameSource:
     return OpenCVSource(src)
 
 
+def needs_prefetch(source: FrameSource) -> bool:
+    """Whether ``source`` wants a ``PrefetchSource`` decode thread. JAX's
+    native (C++) sources decode on their own thread; the port has none, so
+    every source does."""
+    return True
+
+
 class PrefetchSource(FrameSource):
     """Background decode thread + bounded queue: overlaps host decode with
     device compute (the double-buffering half of SURVEY.md §2c's streaming

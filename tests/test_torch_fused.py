@@ -108,20 +108,25 @@ def pairs(estimators, trees):
     return {thresh: _Pair(estimators, trees, thresh) for thresh in (HIT, MISS)}
 
 
-@pytest.fixture(scope="module")
-def jax_float_mesh(pairs):
-    """JAX's frame-pixel landmarks before the int cast (for the ±1 rule)."""
-    jdet = pairs[HIT].jdet
+def jax_float_mesh_fn(jdet, h=H, w=W):
+    """fn(img, boxes): JAX's frame-pixel landmarks before the int cast (for
+    the ±1 rule), from ``jdet``'s mesh on the crop of ``boxes``' best box."""
 
     @jax.jit
     def fn(mesh_params, img_u8, boxes):
         rgb = img_u8[..., ::-1].astype(jnp.float32) / 255.0
-        x0, x1, y0, y1 = jfused._crop_box(boxes, H, W)
+        x0, x1, y0, y1 = jfused._crop_box(boxes, h, w)
         crop = jfused._crop_resize(rgb, jnp.stack([x0, y0, x1 - x0, y1 - y0]), (192, 192))
         lm, _ = jdet._mesh.apply(mesh_params, crop[None])
         return jnp.stack([x0 + lm[0, :, 0] * ((x1 - x0) / 192.0), y0 + lm[0, :, 1] * ((y1 - y0) / 192.0)], -1)
 
     return lambda img, boxes: np.asarray(fn(jdet._mesh_params, img, boxes))
+
+
+@pytest.fixture(scope="module")
+def jax_float_mesh(pairs):
+    """JAX's frame-pixel landmarks before the int cast (for the ±1 rule)."""
+    return jax_float_mesh_fn(pairs[HIT].jdet)
 
 
 def _max_scaled(got, want, tol=1e-4, what=""):
@@ -230,6 +235,52 @@ def test_runner_call_and_batched_are_one_program(pairs, rng):
         torch.testing.assert_close(one[key], same[key][0], rtol=0, atol=0)
 
 
+def test_runner_without_mesh_matches_jax(pairs, rng):
+    """``mesh=False``: depth plus BlazeFace in one program, one frame's
+    (depth, boxes, scores, valid) against JAX's; its ``batched`` raises, as
+    JAX's does."""
+    pair = pairs[HIT]
+    img = _frames(rng, 1)[0]
+    runner = FusedFrameRunner(pair.port, pair.tdet, mesh=False)
+    assert not runner.pose
+    got = [t.numpy() for t in runner(img)]
+    want = [np.asarray(t) for t in jfused.FusedFrameRunner(pair.ref, pair.jdet, mesh=False)(img)]
+    assert [g.shape for g in got] == [w.shape for w in want] == [(H, W), (16, 16), (16,), (16,)]
+    _max_scaled(got[0], want[0], what="depth")
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[3], want[3])
+    with pytest.raises(ValueError, match="mesh=True"):
+        runner.batched(img[None])
+
+
+@pytest.mark.parametrize("thresh,options", [(HIT, {"pose": False}), (MISS, {"pose": False}),
+                                            (MISS, {"emit_depth_map": False})],
+                         ids=["no_pose_hit", "no_pose_miss", "no_depth_map_miss"])
+def test_runner_options_match_jax(pairs, jax_float_mesh, rng, thresh, options):
+    """``pose=False`` (no pose keys; a miss returns the mesh zeros only) and
+    ``emit_depth_map=False`` (no ``depth``): the same keys as JAX's runner
+    with the same options, each frame of a K = 2 batch agreeing with JAX's
+    by ``assert_frame_agrees`` (the depth map, where the program drops it,
+    from the runners without the option)."""
+    pair = pairs[thresh]
+    imgs, pts = _frames(rng, 2), _pts(rng, 2)
+    got = FusedFrameRunner(pair.port, pair.tdet, **options).batched(imgs, pts)
+    want = jax.device_get(jfused.FusedFrameRunner(pair.ref, pair.jdet, **options).batched(imgs, pts))
+    assert set(got) == set(want)
+    dropped = {"pose_lm", "pose_score", "ears_sample"} if "pose" in options else {"depth"}
+    assert not dropped & set(got) and len(got) == 16 - len(dropped)
+    full = FusedFrameRunner(pair.port, pair.tdet).batched(imgs, pts)
+    jfull = jax.device_get(jfused.FusedFrameRunner(pair.ref, pair.jdet).batched(imgs, pts))
+    for i in range(2):
+        g = {k: full[k][i].numpy() if k in dropped else v[i].numpy() for k, v in {**full, **got}.items()}
+        w = {k: np.asarray(jfull[k][i] if k in dropped else v[i]) for k, v in {**jfull, **want}.items()}
+        flt = jax_float_mesh(imgs[i], w["boxes"]) if thresh == HIT else None
+        assert_frame_agrees(g, w, flt)
+        if "pose" in options and thresh == MISS:
+            assert not got["mesh"][i].any() and got["l_radius"][i] == 0
+
+
 def test_vis_u8_and_samples_match_the_host_forms(pairs, rng):
     """vis_u8 is to_video_frame of the f32 map, byte for byte; the samples
     are FaceDet.get_depth's on the same map."""
@@ -302,10 +353,46 @@ def test_fused_vidstream_miss_uses_the_programs_pose(estimators, trees, monkeypa
 
 
 def test_fused_vidstream_refuses_unfaithful_face(estimators, trees):
+    """A ``faithful=False`` FaceDet is no longer refused: the fused loop's
+    runner then emits the f32 map (for the host's samples), and with a
+    faithful face it does not."""
     _, port = estimators
     _, tdet = detector_pair(trees, HIT)
-    with pytest.raises(ValueError, match="faithful"):
-        FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), "synthetic:2x120x160")
+    loose = FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), "synthetic:2x120x160")
+    faithful = FusedVidStream(port, tdet, tdet.face, "synthetic:2x120x160")
+    assert loose._runner.emit_depth_map and not faithful._runner.emit_depth_map
+    for vs in (loose, faithful):
+        vs.video.release()
+
+
+@pytest.mark.parametrize("thresh,kw", [(MIXED, {"pipeline_depth": 2}), (MIXED, {"microbatch": 2})],
+                         ids=["mixed_depth2", "mixed_microbatch2"])
+def test_unfaithful_fused_vidstream_matches_jax(estimators, trees, thresh, kw):
+    """With a ``faithful=False`` FaceDet the host samples the fetched f32 map
+    (``get_depth`` without the reference's quirks): the same samples,
+    distances, routes and written frames as JAX's loop."""
+    from depth_estimation_tpu.geometry.face import FaceDet as JaxFaceDet
+
+    ref, port = estimators
+    jdet, tdet = detector_pair(trees, thresh)
+    jdet.face, tdet.face = JaxFaceDet(20, CARD, faithful=False), FaceDet(20, CARD, faithful=False)
+    runs = []
+    for cls, sink, est, det in ((JaxFusedVidStream, _collector(JaxNullSink), ref, jdet),
+                                (FusedVidStream, _collector(NullSink), port, tdet)):
+        vs = cls(est, det, det.face, "synthetic:8x120x160", sink, verbose=False, **kw)
+        routes = []
+        for name in ("_iris_path", "_body_path"):
+            orig = getattr(vs, name)
+            setattr(vs, name, lambda vis, orig=orig, name=name: (routes.append(name), orig(vis))[1])
+        vs.stream()
+        runs.append((det.face, sink.frames, routes))
+    (jface, jframes, jroutes), (tface, tframes, troutes) = runs
+    assert troutes == jroutes and set(troutes) == {"_iris_path", "_body_path"}
+    assert len(tface.ri_depths) == len(jface.ri_depths) > 0
+    for key in ("ri_depths", "abs_depths", "s2c_ds", "head_measurements"):
+        np.testing.assert_allclose(getattr(tface, key), getattr(jface, key), rtol=1e-5, err_msg=key)
+    moved = [int((g != w).any(axis=-1).sum()) for g, w in zip(tframes, jframes)]
+    assert len(tframes) == len(jframes) == 8 and max(moved) <= 0.001 * (H // 2) * W, moved
 
 
 def test_entry_point_writes_an_avi(tmp_path):

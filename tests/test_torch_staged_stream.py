@@ -94,8 +94,9 @@ def test_staged_stream_refuses_microbatches_and_takes_a_corrected_face(estimator
     _, tdet = detectors
     with pytest.raises(ValueError, match="microbatch>1 requires the fused"):
         FusedVidStream(port, tdet, tdet.face, f"synthetic:2x{H}x{W}", NullSink(), fused=False, microbatch=2)
-    with pytest.raises(ValueError, match="faithful"):
-        FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), f"synthetic:2x{H}x{W}", NullSink())
+    # the fused loop takes a corrected face too, its runner emitting the f32 map for the host's samples
+    assert FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), f"synthetic:2x{H}x{W}",
+                          NullSink())._runner.emit_depth_map
     vs = FusedVidStream(port, tdet, FaceDet(20, CARD, faithful=False), f"synthetic:2x{H}x{W}", NullSink(),
                         fused=False)
     assert vs._runner is None
