@@ -173,6 +173,27 @@ def time_ms(fn, reps=25, inner=10):
     return statistics.median(times)
 
 
+PROFILE_MARGIN_S = 0.1
+
+
+def cuda_events(fn, n=1):
+    """torch.profiler's device rows (``key_averages()``) for ``n`` calls of
+    ``fn`` and a sync. The profiler keeps only device activity whose
+    timestamps, mapped from the device's clock to the host's, fall inside its
+    capture window, so a kernel run at the window's opening could be dropped
+    (one H100 run counted 16 of a bf16 frame's 24 K1 kernels). The calls are
+    therefore made ``PROFILE_MARGIN_S`` after the window opens, on an idle
+    device, and the window closes as long after their sync."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return prof.key_averages()
+
+
 def sm_count():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -204,13 +225,11 @@ def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
         else:
             bnd, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
             row.update(bound_peak="bf16 tensor cores, 989 TFLOP/s")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            F.scaled_dot_product_attention(q, k, v)
-            torch.cuda.synchronize()
+        events = cuda_events(lambda: F.scaled_dot_product_attention(q, k, v))
         row.update(ms=time_ms(lambda: multi_head_attention(q, k, v)),
                    plain_ms=time_ms(lambda: attention_plain(q, k, v)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-                   library_kernel=max(prof.key_averages(), key=lambda e: e.self_device_time_total).key[:120],
+                   library_kernel=max(events, key=lambda e: e.self_device_time_total).key[:120],
                    bound_ms=bnd, bound_by=by)
     emit("kernel", name="attention", **row)
     return row
@@ -375,11 +394,7 @@ def profile_frames(est, frame, phase="profile", batch=1, n=8, max_calls=None):
         program(imgs)
     torch.cuda.synchronize()
     program_ms = (time.perf_counter() - t0) / n * 1e3
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            program(imgs)
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()),
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in cuda_events(lambda: program(imgs), n)),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / n / 1e3
     k1 = [r for r in rows if any(name in r[0] for name in K1_KERNELS)]
@@ -444,10 +459,8 @@ def bf16_mode(est, frame, bound, per_program, phase="bf16"):
     counts = kernels.launch_counts()
     want = {name: 8 * n for name, n in per_program.items()}
     check(counts == want, f"{phase}: launch counts {counts} != {want}")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        est16.predict_device_u8(frame)
-        torch.cuda.synchronize()
-    k1_route = {name: sum(e.count for e in prof.key_averages() if name in e.key) for name in K1_KERNELS}
+    events = cuda_events(lambda: est16.predict_device_u8(frame))
+    k1_route = {name: sum(e.count for e in events if name in e.key) for name in K1_KERNELS}
     check(k1_route == {"attention_f32_kernel": 0, "attention_bf16_kernel": per_program["multi_head_attention"]},
           f"{phase}: K1 kernels by route in one frame {k1_route}")
     emit(phase, model=est.model_type, src_hw=list(frame.shape[:2]), max_abs_rel_vs_f32=rel16, bound=bound,
@@ -623,11 +636,7 @@ def branch_times(fn, n=8):
         fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()]
+    rows = [(e.key, e.self_device_time_total, e.count) for e in cuda_events(fn, n)]
     return {"host_ms": host_ms, "busy_ms": sum(r[1] for r in rows) / n / 1e3,
             "kernels": sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n}
 
@@ -645,11 +654,7 @@ def program_profile(call, n):
         call()
     torch.cuda.synchronize()
     program_ms = (time.perf_counter() - t0) / n * 1e3
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()), key=lambda r: -r[1])
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in cuda_events(call, n)), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / n / 1e3
     kernels_run = sum(r[2] for r in rows if r[1] > 0 and not r[0].startswith(("Memcpy", "Memset"))) / n
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as cprof:
