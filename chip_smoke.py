@@ -112,9 +112,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    DPT_Large, MultiStream mode and ``--online``, its printed lines. Each
    prints its seconds.
 
+15. kernel_grad, train_hold, midas_train_hold, train, evaluate — training,
+   evaluation and checkpoints: K1 (f32, (2,16,577,64), 2e-5 + 1e-4 rel), K3
+   (288×384 → 240×320, batch 2, 3e-5) and K4 (f32, the four MiDaS conv2
+   shapes, 1e-4) autograd Functions against autograd of the plain versions,
+   the backward's ms beside the forward's; one ``make_train_step`` step of
+   DPT_Large (batch 2 at 240×320, a 288×384 network; K1 24, K2 1, K3 1) and
+   of MiDaS v2.1 (batch 1 at 192×256; K4 30 forward + 30 dX) on the card
+   against the CPU's plain path on the same weights (loss 1e-3 abs-rel, the
+   gradient 1e-3 max-scaled over all trainable tensors); ``fit`` of DPT_Large
+   (batch 2, 8 steps; a checkpoint at step 4 restored bit for bit and a
+   resumed run within 1e-4 of the straight one), ms per step, images/s and
+   peak memory; the evaluate CLI on the card against ``--device cpu`` on a
+   cache filled by ``import_weights`` (MiDaS_small, 8 synthetic 192×256
+   pairs, 1e-4).
+
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
-fused, detection, staged, server, fused_server and multistream paths'; K2's
+fused, detection, staged, server, fused_server, multistream, train (8
+steps of ``fit``) and midas_train_step paths', the backward under ``grad``; K2's
 and K3's for each network input under ``per_shape``, with K2's linear
 route's shapes),
 the ``nvidia-smi`` line, and last
@@ -1315,6 +1331,298 @@ def run_serve_cli(tmp, phase="serve_cli"):
     emit(phase, **row)
 
 
+# -- training, evaluation and checkpoints --------------------------------------
+
+TRAIN_PER_STEP = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+
+
+def grads_of(fn, inputs, upstream):
+    """The gradients of (fn(*inputs) · upstream).sum() for fresh leaf copies of ``inputs``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, upstream)
+
+
+def backward_ms(fn, inputs, upstream):
+    """Device ms of the backward alone: one forward, then the backward timed with a kept graph."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, upstream, retain_graph=True), reps=10, inner=5)
+
+
+def compare_grads(name, got, want, atol, rtol):
+    errs = []
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        check(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol),
+              f"{name} gradient {tuple(g.shape)}: max abs err {err} over atol {atol} rtol {rtol}")
+        errs.append(err)
+    return max(errs)
+
+
+def check_kernel_grads(gen):
+    """Each kernel's autograd Function on the card against autograd of its
+    plain version (the JAX package's XLA form, which XLA differentiates):
+    K1 f32 at DPT_Large's training shape, K3 f32 from 288×384 to 240×320 at
+    batch 2, K4 f32 at the four MiDaS conv2 shapes; the backward's device ms
+    beside the forward's. Each forward and each K4 dX is one counted launch."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+    from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
+    from depth_estimation_tpu_torch.ops.kernels import resize as trsz
+
+    rows = {}
+    kernels.reset_launch_counts()
+    # K1: q, k, v as strided views of one fused projection, as the ViT gives them
+    qkv = torch.randn((2, 577, 3, 16, 64), generator=gen, device="cuda")
+    do = torch.randn((2, 16, 577, 64), generator=gen, device="cuda")
+    views = lambda f: lambda t: f(*t.permute(2, 0, 3, 1, 4))  # noqa: E731
+    err = compare_grads("attention", grads_of(views(tatt.multi_head_attention), [qkv], do),
+                        grads_of(views(tatt.attention_plain), [qkv], do), 2e-5, 1e-4)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    rows["multi_head_attention"] = {
+        "shape": [2, 16, 577, 64], "max_abs_err": err, "atol": 2e-5, "rtol": 1e-4,
+        "ms": time_ms(lambda: tatt.multi_head_attention(q, k, v)),
+        "bwd_ms": backward_ms(views(tatt.multi_head_attention), [qkv], do),
+        "plain_bwd_ms": backward_ms(views(tatt.attention_plain), [qkv], do),
+        "library_bwd_ms": backward_ms(views(F.scaled_dot_product_attention), [qkv], do)}
+    # K3: the train step's resize of the 288×384 prediction back to 240×320
+    x = torch.rand((2, 288, 384), generator=gen, device="cuda")
+    g = torch.rand((2, 240, 320), generator=gen, device="cuda")
+    fwd = lambda t: trsz.resize_planes(t, (240, 320))  # noqa: E731
+    plain = lambda t: trsz.resize_planes_plain(t, (240, 320))  # noqa: E731
+    err = compare_grads("resize", grads_of(fwd, [x], g), grads_of(plain, [x], g), 3e-5, 1e-5)
+    rows["resize_planes"] = {"in": [2, 288, 384], "out": [2, 240, 320], "max_abs_err": err, "atol": 3e-5,
+                             "rtol": 1e-5, "ms": time_ms(lambda: fwd(x)), "bwd_ms": backward_ms(fwd, [x], g),
+                             "plain_bwd_ms": backward_ms(plain, [x], g)}
+    # K4: dX is a K4 launch on the transposed, flipped weight; dW the plain im2col product
+    k4 = {}
+    for layer, (c, h, w) in MIDAS_CONV2_SHAPES.items():
+        xg = torch.randn((1, c, h, w), generator=gen, device="cuda")
+        wg = torch.randn((c, c // 32, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * c // 32)
+        dy = torch.randn((1, c, h, w), generator=gen, device="cuda")
+        fwd = lambda a, b: tgc.grouped_conv3x3(a, b, 32)  # noqa: E731
+        plain = lambda a, b: tgc.grouped_conv3x3_plain(a, b, 32)  # noqa: E731
+        err = compare_grads(f"grouped conv {layer}", grads_of(fwd, [xg, wg], dy), grads_of(plain, [xg, wg], dy),
+                            1e-4, 1e-4)
+        wt = tgc.transposed_weight(wg, 32)
+        k4[layer] = {"shape": [1, c, h, w], "max_abs_err": err, "atol": 1e-4, "rtol": 1e-4,
+                     "ms": time_ms(lambda: fwd(xg, wg)), "bwd_ms": backward_ms(fwd, [xg, wg], dy),
+                     "dx_ms": time_ms(lambda: tgc._launch(dy, wt, 32)),
+                     "dw_ms": time_ms(lambda: tgc.weight_grad_plain(xg, dy, 32)),
+                     "library_dw_ms": time_ms(
+                         lambda: torch.nn.grad.conv2d_weight(xg, wg.shape, dy, padding=1, groups=32)),
+                     "plain_bwd_ms": backward_ms(plain, [xg, wg], dy)}
+    rows["grouped_conv3x3"] = {"per_layer": k4, **k4["layer3"]}
+    emit("kernel_grad", **rows)
+    return rows
+
+
+def train_models(est, device):
+    """A fresh copy of ``est``'s weights on ``device`` and the train step over u8 batches."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.train.data import TrainingApply
+    from depth_estimation_tpu_torch.train.step import make_optimizer, make_train_step
+
+    copy = DepthEstimator(est.model_type, params={k: v.cpu() for k, v in est.model.state_dict().items()},
+                          device=device, verbose=False)
+    return copy.model, make_train_step(TrainingApply(copy.model, copy.preprocess_cfg), make_optimizer(copy.model))
+
+
+def train_hold(est, batch, src_hw, per_step, phase="train_hold"):
+    """One train step (K2 → the network → K3, SSI + 0.5 · gradient matching,
+    AdamW) on the card and the same step on the CPU's plain path from the
+    same weights and u8 batch: the loss within 1e-3 abs-rel; the gradient,
+    all trainable tensors as one vector, within 1e-3 of the CPU's largest
+    value (the accuracy gate's max-scaled form), and a tensor whose gradient
+    is all zero on the CPU all zero on the card; the step's launches
+    ``per_step``. Each tensor's error against its own largest value is
+    printed, not gated: on these random weights every f32 implementation,
+    the CPU's included, lands up to 1.6e-3 (DPT_Large) and 3.8e-2 (MiDaS)
+    of a tensor's own largest value from the float64 gradient
+    (tools/train_grad_precision.py). The CPU runs with PyTorch's defaults
+    (oneDNN on): with oneDNN off, ATen's CPU convolutions put MiDaS's
+    gradient 1.4e-3 (max-scaled) from float64, against 1.9e-4 with it on and
+    2.2e-4 on the card (the same tool)."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.train.data import batches, synthetic_pairs
+    from depth_estimation_tpu_torch.train.step import trainable_tensors
+
+    (imgs, gt), = list(batches(synthetic_pairs(batch, *src_hw, seed=3), batch, shuffle=False))
+    imgs, gt = torch.from_numpy(imgs), torch.from_numpy(gt)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model, step = train_models(est, device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(step(imgs.to(device), gt.to(device)))
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        grads = {k: t.grad.detach().float().cpu() for k, t in trainable_tensors(model).items()}
+        results[device] = (loss, grads, counts, seconds)
+        del model, step
+        torch.cuda.empty_cache()
+    (loss_g, grads_g, counts, gpu_s), (loss_c, grads_c, cpu_counts, cpu_s) = results["cuda"], results["cpu"]
+    check(counts == per_step, f"{phase}: launch counts {counts} != {per_step}")
+    check(sum(cpu_counts.values()) == 0, f"{phase}: the CPU step launched kernels {cpu_counts}")
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    check(math.isfinite(loss_g) and loss_rel < 1e-3, f"{phase}: loss {loss_g} vs cpu {loss_c}, abs-rel {loss_rel}")
+    check(sorted(grads_g) == sorted(grads_c), f"{phase}: trainable tensors differ")
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    check(top > 0 and all(torch.isfinite(g).all() for g in grads_g.values()), f"{phase}: gradients zero or not finite")
+    diff = {k: float((grads_g[k] - gc).abs().max()) for k, gc in grads_c.items()}
+    own = {k: diff[k] / float(gc.abs().max()) for k, gc in grads_c.items() if gc.abs().max() > 0}
+    zeros = sorted(k for k, gc in grads_c.items() if gc.abs().max() == 0)
+    for k in zeros:
+        check(diff[k] == 0, f"{phase}: {k} has no gradient on the CPU but has on the card")
+    worst = max(diff, key=diff.get)
+    emit(phase, model=est.model_type, batch=batch, src_hw=list(src_hw), loss=loss_g, cpu_loss=loss_c,
+         loss_abs_rel=loss_rel, tensors=len(diff), zero_on_cpu=zeros, max_scaled=diff[worst] / top, worst=worst,
+         largest_grad=top, own_scaled_worst={k: own[k] for k in sorted(own, key=own.get)[-5:]},
+         own_scaled_over_1e3=sum(v >= 1e-3 for v in own.values()), launches=counts, first_step_s_card=gpu_s,
+         cpu_step_s=cpu_s)
+    check(diff[worst] / top < 1e-3, f"{phase}: gradient of {worst} off the CPU's by {diff[worst] / top} (max-scaled)")
+    return counts
+
+
+def run_train(est, phase="train", batch=2, src_hw=(240, 320), steps=8, ckpt_every=4, timed_steps=5):
+    """``fit`` of DPT_Large on the card over u8 ``synthetic_pairs`` batches
+    (4 a pass, so a resumed run sees the batches the straight one saw): 8
+    straight steps (launches K1 24, K2 1, K3 1 a step), then 4 steps with a
+    checkpoint every 4, the restored tensors and moments equal bit for bit
+    to the saved ones, and a run resumed from it to step 8, whose losses lie
+    within 1e-4 relative of the straight run's (cuDNN may choose other
+    algorithms, so bitwise is asked of the CPU only); the largest difference
+    of the two runs' final tensors is printed. Then ms per step (CUDA
+    events, ``timed_steps`` steps after the runs), images/s, the peak memory
+    of the steps, and the share of the trained model's output that is not
+    zero (on these random weights the first AdamW step drives the
+    non-negative head to zero, after which a pass's losses repeat)."""
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.train.data import TrainingApply, batches, device_prefetch, synthetic_pairs
+    from depth_estimation_tpu_torch.train.loop import fit
+    from depth_estimation_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
+    from depth_estimation_tpu_torch.utils.checkpoint import load_train_state
+
+    t_phase = time.perf_counter()
+    data = device_prefetch(batches(synthetic_pairs(4 * batch, *src_hw, seed=1), batch), device="cuda")
+
+    def model():
+        return TrainingApply(train_models(est, "cuda")[0], est.preprocess_cfg)
+
+    kernels.reset_launch_counts()
+    straight, hist_a = fit(model(), data, steps=steps, log_every=1, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == launches_per(TRAIN_PER_STEP, steps), f"{phase}: launch counts {counts}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        half, _ = fit(model(), data, steps=ckpt_every, ckpt_dir=ckpt, ckpt_every=ckpt_every, verbose=False,
+                      device="cuda")
+        torch.cuda.synchronize()
+        half_s = time.perf_counter() - t0
+        fresh = model()
+        t0 = time.perf_counter()
+        restored = load_train_state(os.path.join(ckpt, "state"), TrainState(fresh, make_optimizer(fresh)))
+        load_s = time.perf_counter() - t0
+        check(restored.step == ckpt_every, f"{phase}: restored step {restored.step}")
+        saved, back = half.model.state_dict(), restored.model.state_dict()
+        check(all(torch.equal(saved[k], back[k]) for k in saved), f"{phase}: restored tensors differ")
+        for sa, sb in zip(half.optimizer.state.values(), restored.optimizer.state.values()):
+            check(all(torch.equal(sa[m], sb[m]) for m in ("exp_avg", "exp_avg_sq", "step")),
+                  f"{phase}: restored optimizer state differs")
+        del half, fresh, restored, saved, back
+        torch.cuda.empty_cache()
+        resumed, hist_b = fit(model(), data, steps=steps, ckpt_dir=ckpt, ckpt_every=ckpt_every, log_every=1,
+                              verbose=False, device="cuda")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "state"))
+    check(resumed.step == steps and [s for s, _ in hist_b] == list(range(ckpt_every + 1, steps + 1)),
+          f"{phase}: resumed history {hist_b}")
+    straight_tail = [l for s, l in hist_a if s > ckpt_every]
+    rel = max(abs(a - b) / abs(b) for (_, a), b in zip(hist_b, straight_tail))
+    check(rel < 1e-4, f"{phase}: resumed losses {hist_b} vs straight {straight_tail}, max rel {rel}")
+    check(all(math.isfinite(l) for _, l in hist_a), f"{phase}: losses {hist_a}")
+    final, back = straight.model.state_dict(), resumed.model.state_dict()
+    resumed_diff = max(float((final[k] - back[k]).abs().max()) for k in final)
+    del resumed, final, back
+    # ms per step on the card, inputs already there, after the runs' set-up
+    step = make_train_step(straight.model, straight.optimizer)
+    imgs, gt = next(iter(data))
+    step(imgs, gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(timed_steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(imgs, gt)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    with torch.no_grad():
+        nonzero = float((straight.model(imgs) != 0).float().mean())
+    emit(phase, model=est.model_type, batch=batch, src_hw=list(src_hw), steps=steps, losses=hist_a,
+         resumed_losses=hist_b, resumed_max_rel=rel, resumed_tensors_max_abs_diff=resumed_diff,
+         trained_output_nonzero_share=nonzero, launches=counts, ms_per_step=ms, step_ms=times,
+         images_per_s=batch / ms * 1e3, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         checkpoint_bytes=ckpt_bytes, checkpoint_run_s=half_s, checkpoint_load_s=load_s,
+         seconds=time.perf_counter() - t_phase)
+    del straight, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_evaluate(tmp, phase="evaluate", model_type="MiDaS_small"):
+    """``tools.evaluate`` on the card and with ``--device cpu`` on one weight
+    cache, filled through ``tools.import_weights`` from a .pt of random
+    weights under a temporary ``DEPTH_ESTIMATION_TPU_TORCH_CACHE`` (no later
+    phase or run sees it): the same JSON within 1e-4 (of the value where it
+    is over 1). The card's run launches K2 and K3 once a batch."""
+    import contextlib
+    import io
+
+    from depth_estimation_tpu_torch.estimator import random_state_dict
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.registry import get_entry
+    from depth_estimation_tpu_torch.tools import evaluate, import_weights
+    from depth_estimation_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    saved_env = os.environ.get(checkpoint.CACHE_ENV)
+    os.environ[checkpoint.CACHE_ENV] = os.path.join(tmp, "cache")
+    try:
+        with torch.device("meta"):
+            shapes = get_entry(model_type).make_model()
+        pt = os.path.join(tmp, f"{model_type}.pt")
+        torch.save(random_state_dict(shapes, seed=0), pt)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(import_weights.main([pt, model_type]) == 0, f"{phase}: import_weights failed")
+        lines = {}
+        for device in ("cuda", "cpu"):
+            kernels.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(evaluate.main(["--synthetic", "8", "--hw", "192", "256", "--model-type", model_type,
+                                     "--device", device]) == 0, f"{phase}: evaluate --device {device} failed")
+            lines[device] = (json.loads(buf.getvalue().strip().splitlines()[-1]), kernels.launch_counts())
+    finally:
+        if saved_env is None:
+            os.environ.pop(checkpoint.CACHE_ENV)
+        else:
+            os.environ[checkpoint.CACHE_ENV] = saved_env
+    (gpu, counts), (cpu, _) = lines["cuda"], lines["cpu"]
+    check(counts == {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0},
+          f"{phase}: launch counts {counts}")
+    check(set(gpu) == set(cpu) and gpu["images"] == 8, f"{phase}: {gpu} vs {cpu}")
+    diffs = {k: abs(gpu[k] - v) / max(1.0, abs(v)) for k, v in cpu.items() if isinstance(v, float)}
+    check(max(diffs.values()) <= 1e-4 and all(math.isfinite(gpu[k]) for k in diffs),
+          f"{phase}: card {gpu} vs cpu {cpu}")
+    emit(phase, model=model_type, imported=out.getvalue().strip(), card=gpu, cpu=cpu, max_diff=max(diffs.values()),
+         launches=counts, seconds=time.perf_counter() - t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -1465,11 +1773,25 @@ def main():
         del fam, fam16
         torch.cuda.empty_cache()
 
+    # training, evaluation and checkpoints: the kernels' gradients, one train step of each K4-free and K4
+    # family against the CPU, fit with a checkpoint and a resume, the evaluate CLI
+    with full_f32():
+        grad_rows = check_kernel_grads(gen)
+    train_hold(est, 2, (240, 320), TRAIN_PER_STEP)
+    midas_train_launches = train_hold(midas, 1, (192, 256), {**TRAIN_PER_STEP, "multi_head_attention": 0,
+                                                             "grouped_conv3x3": 60}, "midas_train_hold")
+    del midas
+    torch.cuda.empty_cache()
+    train_launches = run_train(est)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_evaluate(tmp)
+
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
                 "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
                 "detection": detection_launches, "staged_iris": staged_launches, "server": server_launches,
-                "fused_server": fused_server_launches, "multistream": multistream_launches}
+                "fused_server": fused_server_launches, "multistream": multistream_launches,
+                "train": train_launches, "midas_train_step": midas_train_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1480,7 +1802,8 @@ def main():
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
-              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris", "server", "fused_server", "multistream"),
+              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris", "server", "fused_server", "multistream",
+               "train"), grad=grad_rows["multi_head_attention"],
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
@@ -1497,11 +1820,13 @@ def main():
                             for key in DETECTOR_INPUTS}}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches, per_path,
+              grad=grad_rows["resize_planes"],
               **{k: rsz["dpt_384x512"][k] for k in K3_U8_KEYS},
               per_shape={key: {"launches": path[key]["resize_planes"],
                                **{k: rsz[key][k] for k in K23_KEYS + K3_U8_KEYS}} for key in resize_shapes}),
         entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
               "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches, per_path,
+              grad=grad_rows["grouped_conv3x3"],
               bound_peak=gconv["layer3"]["bound_peak"], fma_bound_ms=gconv["layer3"]["fma_bound_ms"],
               bf16_ms=gconv16["layer3"]["ms"], bf16_plain_ms=gconv16["layer3"]["plain_ms"],
               bf16_bound_ms=gconv16["layer3"]["bound_ms"], bf16_library_ms=gconv16["layer3"]["library_ms"],

@@ -32,6 +32,7 @@ from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d, PReLU
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.registry import get_entry
+from depth_estimation_tpu_torch.utils import checkpoint
 from depth_estimation_tpu_torch.utils.debug import check_depth_output, check_frame_input
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -83,8 +84,9 @@ class DepthEstimator:
         device="cuda",
     ):
         """params: a state dict with the torch-hub key names (tensors or
-        numpy arrays), such as a hub checkpoint; None means random weights
-        from ``seed``.
+        numpy arrays), such as a hub checkpoint; None means the cached one
+        (``utils/checkpoint.py``, filled by ``tools.import_weights``), or
+        random weights from ``seed`` when there is none.
         dtype: 'float32' (parity with the reference) or 'bfloat16'.
         device: 'cuda' by default; 'cpu' must be asked for, and runs the
         kernels' plain PyTorch versions."""
@@ -101,9 +103,12 @@ class DepthEstimator:
         with torch.device("meta"):  # shapes only; the weights come below
             model = self.entry.make_model()
         if params is None:
+            params = checkpoint.load_params(model_type)
+        if params is None:
             warnings.warn(
-                f"No weights given for {model_type!r}; using random initialization "
-                f"(seed {seed}). Pass a torch-hub state dict as params=.",
+                f"No weights given or cached for {model_type!r}; using random initialization "
+                f"(seed {seed}). Pass a torch-hub state dict as params=, or import one with "
+                f"`python -m depth_estimation_tpu_torch.tools.import_weights <ckpt.pt> {model_type}`.",
                 stacklevel=2,
             )
             params = random_state_dict(model, seed)

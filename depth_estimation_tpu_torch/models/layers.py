@@ -59,9 +59,16 @@ class FrozenBatchNorm2d(nn.Module):
 
     The four tensors are buffers with the hub's names, so the state dict is
     the hub's (without ``num_batches_tracked``, which the forward never
-    reads). There is no training mode: the forward is ``F.batch_norm`` in
-    inference, one launch. They start at the identity (weight 1, bias 0,
-    mean 0, var 1), as the JAX ``FrozenBatchNorm`` initializes."""
+    reads). There is no training mode that updates the statistics. Outside a
+    graph the forward is ``F.batch_norm`` in inference, one launch. They
+    start at the identity (weight 1, bias 0, mean 0, var 1), as the JAX
+    ``FrozenBatchNorm`` initializes.
+
+    The JAX package holds all four as params, and its trainer updates and
+    decays them like any other leaf (``train/step.py::trainable_tensors``
+    makes them trainable here). ``F.batch_norm`` takes no gradient for the
+    statistics, so when a gradient is wanted the forward is JAX's closed
+    form, x·inv + (bias − mean·inv) with inv = weight / sqrt(var + eps)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -72,6 +79,10 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        stats = (self.weight, self.bias, self.running_mean, self.running_var)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *stats)):
+            inv = torch.reciprocal(torch.sqrt(self.running_var + self.eps)) * self.weight
+            return x * inv[:, None, None] + (self.bias - self.running_mean * inv)[:, None, None]
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
 
 

@@ -29,6 +29,15 @@ JAX package's ``_attention_xla``: f32 logits, softmax, probabilities cast to
 the input type, f32 product with V, output in the input type.
 ``multi_head_attention`` takes it for CPU tensors and launches the kernel
 for CUDA tensors.
+
+Gradient. The TPU kernel has none: the JAX package trains through
+``_attention_xla``, so XLA differentiates plain products. On the card the
+launch is the forward of ``_Attention``, a ``torch.autograd.Function``, and
+its backward is ``attention_backward_plain``: P = softmax(QKᵀ/√D) recomputed
+from the saved q, k and v in f32 (P is 16·577²·4 B ≈ 21 MB an image a block
+at 384², cheap to recompute), then dV = PᵀdO, dS = P⊙(dP − rowsum(dO⊙O))
+with dP = dO·Vᵀ, dQ = dS·K/√D and dK = dSᵀ·Q/√D, as ``torch.matmul``s with
+TF32 off.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import math
 
 import torch
 
+from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 
 HEAD_DIM = 64
@@ -50,6 +60,22 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()).to(q.dtype)
+
+
+def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor):
+    """(dQ, dK, dV) of softmax(QKᵀ/√D)V for the output gradient ``do``, in
+    f32 from P recomputed, each cast to its input's dtype. ``o`` is the
+    forward's output."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,11 +116,32 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
     CPU tensors take ``attention_plain``. CUDA tensors launch the kernel,
     which reads q, k and v through their strides (the last axis must be
-    contiguous, and the alignment above holds) and needs D = 64."""
+    contiguous, and the alignment above holds) and needs D = 64; the output
+    carries the gradient of ``attention_backward_plain``."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    return _Attention.apply(q, k, v)
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel's launch as the forward, ``attention_backward_plain`` as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o = _launch(q, k, v)
+        ctx.save_for_backward(q, k, v, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        with full_f32():
+            return attention_backward_plain(*ctx.saved_tensors, do)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, counted."""
     _check(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)

@@ -14,6 +14,18 @@ and launches the kernel for CUDA tensors.
 Layouts: x (B, C, H, W); weight (C, C/G, 3, 3), as ``nn.Conv2d(groups=G)``
 stores it: output channel o reads the input channels of its group
 ``o // (C/G)``.
+
+Gradient. The TPU kernel has none: the JAX package trains through XLA's
+grouped convolution. On the card the launch is the forward of
+``_GroupedConv3x3``, a ``torch.autograd.Function``. Its dX is itself a
+grouped 3×3 stride-1 convolution of dY, with each group's weight transposed
+(in ↔ out) and flipped in both taps (``transposed_weight``); C/G is the same
+in and out, so dX is one more K4 launch. dW is ``weight_grad_plain``, the
+plain version's im2col product transposed (dY·patchesᵀ a group, a
+``torch.matmul`` with TF32 off), as XLA computes it outside the TPU kernel.
+On the H100, cuDNN's grouped ``conv2d_weight`` put one MiDaS layer-4
+element 5e-4 (relative) off this product, and took 0.80 ms there (PERF.md
+§6).
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,14 +74,62 @@ def _lib():
     return lib
 
 
+def weight_grad_plain(x: torch.Tensor, dy: torch.Tensor, groups: int) -> torch.Tensor:
+    """dW of ``grouped_conv3x3_plain`` for the output gradient ``dy``, in
+    f32, cast to x's dtype: (C, C/G, 3, 3)."""
+    b, c, h, w = x.shape
+    cg = c // groups
+    patches = F.unfold(x.float(), 3, padding=1).reshape(b, groups, cg * 9, h * w)
+    dw = torch.matmul(dy.float().reshape(b, groups, cg, h * w), patches.transpose(-1, -2)).sum(0)
+    return dw.reshape(c, cg, 3, 3).to(x.dtype)
+
+
+def transposed_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """The weight whose grouped 3×3 convolution of dY is dX: within each
+    group, in and out channels swapped and both taps flipped; a new
+    contiguous (C, C/G, 3, 3) tensor."""
+    c, cg = weight.shape[:2]
+    w = weight.reshape(groups, c // groups, cg, 3, 3).transpose(1, 2).flip(-2, -1)
+    return w.reshape(c, cg, 3, 3).contiguous()
+
+
 def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
     """``grouped_conv3x3_plain`` for a CPU tensor; one K4 launch for a CUDA
     tensor. The kernel takes contiguous f32 or bf16 x and weight of one
-    dtype, on one device, and writes a new contiguous output."""
+    dtype, on one device, and writes a new contiguous output, which carries
+    the gradient of ``_GroupedConv3x3``."""
     if x.device.type == "cpu":
         return grouped_conv3x3_plain(x, weight, groups)
     if x.device.type != "cuda":
         raise ValueError(f"no grouped conv kernel for device {x.device}")
+    return _GroupedConv3x3.apply(x, weight, groups)
+
+
+class _GroupedConv3x3(torch.autograd.Function):
+    """K4's launch as the forward; dX a K4 launch on ``transposed_weight``,
+    dW ``weight_grad_plain``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, groups):
+        ctx.groups = groups
+        ctx.save_for_backward(x, weight)
+        return _launch(x, weight, groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        with full_f32():
+            if ctx.needs_input_grad[0]:
+                dx = _launch(dy, transposed_weight(weight, ctx.groups), ctx.groups)
+            if ctx.needs_input_grad[1]:
+                dw = weight_grad_plain(x, dy, ctx.groups)
+        return dx, dw, None
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """One K4 launch on CUDA tensors, counted."""
     _check_shapes(x, weight, groups)
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
         raise TypeError(f"x and weight must both be float32 or bfloat16; got {x.dtype}, {weight.dtype}")

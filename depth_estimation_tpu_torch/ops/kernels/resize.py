@@ -24,6 +24,13 @@ versions (the dense matmul form of the JAX package). ``fused_preprocess``
 and ``resize_planes`` take them for CPU tensors and launch the kernels for
 CUDA tensors. ``resize_planes(..., output="u8")`` fuses the reference's
 wrap-around uint8 cast (``ops.postprocess.wraparound_u8``) into K3.
+
+Gradient. K2 takes u8 frames and has none. K3's f32 route is the forward of
+``_ResizePlanes``, a ``torch.autograd.Function`` whose backward is
+``resize_planes_backward_plain``: the transpose of the plain version's two
+products, dD = Whᵀ·G·Ww with the dense ``interp_matrix``es, as
+``torch.matmul``s with TF32 off (the JAX package trains through
+``resize2d``'s products, which XLA differentiates).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
 from depth_estimation_tpu_torch.ops.resize import interp_matrix, resize2d
@@ -230,11 +238,28 @@ def resize_planes_plain(x: torch.Tensor, out_hw: Tuple[int, int], method: str = 
     return wraparound_u8(out) if output == "u8" else out
 
 
+def resize_planes_backward_plain(g: torch.Tensor, in_hw: Tuple[int, int], method: str = "cubic",
+                                 align_corners: bool = False) -> torch.Tensor:
+    """The gradient of ``resize_planes_plain``'s f32 route with respect to
+    its (B, H, W) input, for the output gradient ``g`` (B, H_out, W_out):
+    Whᵀ·g·Ww."""
+    h_out, w_out = g.shape[-2:]
+    wh, ww = (_device_matrix(int(n_in), int(n_out), method, bool(align_corners), g.device)
+              for n_in, n_out in zip(in_hw, (h_out, w_out)))
+    return torch.matmul(wh.t(), torch.matmul(g.float(), ww))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_matrix(in_size, out_size, method, align_corners, device):
+    return torch.from_numpy(interp_matrix(in_size, out_size, method, align_corners)).to(device)
+
+
 def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic",
                   align_corners: bool = False, output: str = "f32") -> torch.Tensor:
     """``resize_planes_plain`` for a CPU tensor; one K3 launch for all the
     planes of a CUDA tensor. The u8 route stores ``(int)trunc(v) & 255``,
-    ``wraparound_u8``'s function for |trunc(v)| < 2**24."""
+    ``wraparound_u8``'s function for |trunc(v)| < 2**24; the f32 route
+    carries the gradient of ``resize_planes_backward_plain``."""
     if x.device.type == "cpu":
         return resize_planes_plain(x, out_hw, method, align_corners, output)
     if method not in ("cubic", "linear"):
@@ -242,19 +267,44 @@ def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic
     if output not in _OUTPUTS:
         raise ValueError(f"output must be one of {sorted(_OUTPUTS)}, got {output!r}")
     planes = x if x.dim() == 3 else x[None]
+    out_hw = (int(out_hw[0]), int(out_hw[1]))
+    if output == "u8":
+        out = _launch(planes, out_hw, method, align_corners, output)
+    else:
+        out = _ResizePlanes.apply(planes, out_hw, method, align_corners)
+    return out if x.dim() == 3 else out[0]
+
+
+class _ResizePlanes(torch.autograd.Function):
+    """K3's f32 launch as the forward, ``resize_planes_backward_plain`` as the backward."""
+
+    @staticmethod
+    def forward(ctx, planes, out_hw, method, align_corners):
+        ctx.in_hw, ctx.method, ctx.align_corners = tuple(planes.shape[1:]), method, align_corners
+        return _launch(planes, out_hw, method, align_corners, "f32")
+
+    @staticmethod
+    def backward(ctx, g):
+        with full_f32():
+            return resize_planes_backward_plain(g, ctx.in_hw, ctx.method, ctx.align_corners), None, None, None
+
+
+def _launch(planes: torch.Tensor, out_hw: Tuple[int, int], method: str, align_corners: bool,
+            output: str) -> torch.Tensor:
+    """One K3 launch on a (B, H, W) CUDA tensor, counted."""
     _check_cuda(planes, torch.float32, 3, "resize")
     b, h, w = planes.shape
-    h_out, w_out = int(out_hw[0]), int(out_hw[1])
+    h_out, w_out = out_hw
     dtype = torch.uint8 if output == "u8" else torch.float32
-    out = torch.empty((b, h_out, w_out), dtype=dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    out = torch.empty((b, h_out, w_out), dtype=dtype, device=planes.device)
+    with torch.cuda.device(planes.device):
         err = _lib().resize_f32(
             planes.data_ptr(), out.data_ptr(), b, h, w, h_out, w_out, _OUTPUTS[output],
             *_launch_args(planes, (h, w), (h_out, w_out), "resize", method, align_corners),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "resize kernel launch")
     build.count_launch(resize_planes)
-    return out if x.dim() == 3 else out[0]
+    return out
 
 
 resize_planes.launches = 0

@@ -476,3 +476,88 @@ def test_fused_program_on_the_card_holds_the_cpu(cuda):
     assert np.isfinite(got["depth"]).all() and float(np.abs(got["depth"] - want["depth"]).max()) / scale < 1e-3
     assert got["valid"][0] and want["valid"][0]
     np.testing.assert_allclose(got["scores"], want["scores"], atol=1e-4, rtol=0)
+
+
+# -- gradients: the kernels' autograd Functions against autograd of the plain versions --
+
+def _grads(fn, inputs, upstream):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, upstream)
+
+
+@pytest.mark.parametrize("b,n", [(2, 577), (1, 65)])
+def test_attention_gradients_match_plain(cuda, gen, b, n):
+    """The kernel's output carries attention_backward_plain's dQ, dK, dV into
+    the fused qkv projection the views come from."""
+    qkv = torch.randn((b, n, 3, 16, 64), generator=gen, device=cuda)
+    do = torch.randn((b, 16, n, 64), generator=gen, device=cuda)
+    before = tatt.multi_head_attention.launches
+    (got,) = _grads(lambda t: tatt.multi_head_attention(*t.permute(2, 0, 3, 1, 4)), [qkv], do)
+    assert tatt.multi_head_attention.launches == before + 1  # the backward launches nothing
+    (want,) = _grads(lambda t: tatt.attention_plain(*t.permute(2, 0, 3, 1, 4)), [qkv], do)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [((288, 384), (240, 320)), ((384, 512), (480, 640))])
+def test_resize_gradient_matches_plain(cuda, gen, in_hw, out_hw):
+    x = torch.rand((2, *in_hw), generator=gen, device=cuda)
+    g = torch.rand((2, *out_hw), generator=gen, device=cuda)
+    (got,) = _grads(lambda t: trsz.resize_planes(t, out_hw), [x], g)
+    (want,) = _grads(lambda t: trsz.resize_planes_plain(t, out_hw), [x], g)
+    torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c,h,w", MIDAS_CONV2_SHAPES, ids=["layer1", "layer2", "layer3", "layer4"])
+def test_grouped_conv_gradients_match_plain(cuda, gen, c, h, w):
+    """dX is one more K4 launch (the transposed, flipped weight), dW the plain im2col product."""
+    x, k = _grouped_inputs(gen, 2, c, h, w, 32, torch.float32, cuda)
+    dy = torch.randn(x.shape, generator=gen, device=cuda)
+    before = tgc.grouped_conv3x3.launches
+    got = _grads(lambda a, b: tgc.grouped_conv3x3(a, b, 32), [x, k], dy)
+    assert tgc.grouped_conv3x3.launches == before + 2
+    want = _grads(lambda a, b: tgc.grouped_conv3x3_plain(a, b, 32), [x, k], dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,hw,per_step", [
+    ("MiDaS_small", (192, 256), {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
+                                 "grouped_conv3x3": 0}),
+    ("MiDaS", (192, 256), {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
+                           "grouped_conv3x3": 60})])
+def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
+    """One train step of a full-width family on the card (its kernels and
+    their Functions) against the same weights on the CPU: the
+    loss within 1e-3 abs-rel, and the gradient, every trainable tensor as
+    one vector, within 1e-3 of the CPU's largest value (on random weights
+    every f32 implementation lands some tensors 1e-3 to 4e-2 of their own
+    largest value from float64: tools/train_grad_precision.py)."""
+    import warnings
+
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.train.data import TrainingApply, synthetic_pairs
+    from depth_estimation_tpu_torch.train.step import make_optimizer, make_train_step, trainable_tensors
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        est = DepthEstimator(name, seed=0, verbose=False)
+    img, gt = next(synthetic_pairs(1, *hw, seed=2))
+    img, gt = torch.from_numpy(img[None]), torch.from_numpy(gt[None])
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = DepthEstimator(name, params={k: v.cpu() for k, v in est.model.state_dict().items()},
+                               verbose=False, device=device).model
+        step = make_train_step(TrainingApply(model, est.preprocess_cfg), make_optimizer(model))
+        kernels.reset_launch_counts()
+        loss = float(step(img.to(device), gt.to(device)))
+        out[device] = loss, {k: t.grad.float().cpu() for k, t in trainable_tensors(model).items()}
+        if device == "cuda":
+            assert kernels.launch_counts() == per_step
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) / abs(lc) < 1e-3
+    top = max(float(g.abs().max()) for g in gc.values())
+    assert top > 0
+    for k, g in gc.items():
+        err = float((gg[k] - g).abs().max())
+        assert err / top < 1e-3 and (err == 0 or float(g.abs().max()) > 0), k
