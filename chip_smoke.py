@@ -120,9 +120,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    DPT_Large (batch 2 at 240×320, a 288×384 network; K1 24, K2 1, K3 1) and
    of MiDaS v2.1 (batch 1 at 192×256; K4 30 forward + 30 dX) on the card
    against the CPU's plain path on the same weights (loss 1e-3 abs-rel, the
-   gradient 1e-3 max-scaled over all trainable tensors); ``fit`` of DPT_Large
-   (batch 2, 8 steps; a checkpoint at step 4 restored bit for bit and a
-   resumed run within 1e-4 of the straight one), ms per step, images/s and
+   gradient 1e-3 max-scaled over all trainable tensors) and each tensor
+   against the float64 gradient (4e-3 and 2.5e-2 of its own largest value);
+   ``fit`` of DPT_Large with its head kept alive (batch 2, 8 steps; a
+   checkpoint at step 4 restored bit for bit, a run resumed from it within
+   1e-4 of the in-memory continuation over two steps and 1e-3 over four,
+   one resumed with zeroed moments not), ms per step, images/s and
    peak memory; the evaluate CLI on the card against ``--device cpu`` on a
    cache filled by ``import_weights`` (MiDaS_small, 8 synthetic 192×256
    pairs, 1e-4).
@@ -1429,36 +1432,41 @@ def train_models(est, device):
     return copy.model, make_train_step(TrainingApply(copy.model, copy.preprocess_cfg), make_optimizer(copy.model))
 
 
-def train_hold(est, batch, src_hw, per_step, phase="train_hold"):
+def train_hold(est, batch, src_hw, per_step, tensor_tol, phase="train_hold"):
     """One train step (K2 → the network → K3, SSI + 0.5 · gradient matching,
     AdamW) on the card and the same step on the CPU's plain path from the
-    same weights and u8 batch: the loss within 1e-3 abs-rel; the gradient,
-    all trainable tensors as one vector, within 1e-3 of the CPU's largest
-    value (the accuracy gate's max-scaled form), and a tensor whose gradient
-    is all zero on the CPU all zero on the card; the step's launches
-    ``per_step``. Each tensor's error against its own largest value is
-    printed, not gated: on these random weights every f32 implementation,
-    the CPU's included, lands up to 1.6e-3 (DPT_Large) and 3.8e-2 (MiDaS)
-    of a tensor's own largest value from the float64 gradient
-    (tools/train_grad_precision.py). The CPU runs with PyTorch's defaults
-    (oneDNN on): with oneDNN off, ATen's CPU convolutions put MiDaS's
-    gradient 1.4e-3 (max-scaled) from float64, against 1.9e-4 with it on and
-    2.2e-4 on the card (the same tool)."""
+    same weights and u8 batch, and the step's float64 gradient on the CPU
+    (``float64_gradients``): the loss within 1e-3 abs-rel of the CPU's; the
+    gradient, all trainable tensors as one vector, within 1e-3 of the CPU's
+    largest value (the accuracy gate's max-scaled form); every tensor's
+    gradient within ``tensor_tol`` of its own largest float64 value from the
+    float64 gradient, and a tensor whose float64 gradient is all zero all
+    zero on the card; the step's launches ``per_step``. Per tensor no f32
+    implementation meets 1e-3 on these random weights: against float64 the
+    card, the CPU and ATen's own CUDA convolutions land some tensors up to
+    1.8e-3 (DPT_Large) and 7.4e-3 (MiDaS) off, while TF32, a control, lands
+    9.1e-3 and 9.6e-2 (tools/train_grad_precision.py); ``tensor_tol`` lies
+    between. The CPU runs PyTorch's defaults (oneDNN on; off, ATen's CPU
+    convolutions land MiDaS 3.8e-2 per tensor and 1.4e-3 max-scaled off)."""
     from depth_estimation_tpu_torch.ops import kernels
-    from depth_estimation_tpu_torch.train.data import batches, synthetic_pairs
-    from depth_estimation_tpu_torch.train.step import trainable_tensors
+    from depth_estimation_tpu_torch.train.data import TrainingApply, batches, synthetic_pairs
+    from depth_estimation_tpu_torch.train.step import float64_gradients, trainable_tensors
 
     (imgs, gt), = list(batches(synthetic_pairs(batch, *src_hw, seed=3), batch, shuffle=False))
     imgs, gt = torch.from_numpy(imgs), torch.from_numpy(gt)
     results = {}
     for device in ("cuda", "cpu"):
         model, step = train_models(est, device)
+        if device == "cpu":
+            t0 = time.perf_counter()
+            loss64, grads64 = float64_gradients(TrainingApply(model, est.preprocess_cfg), imgs, gt)
+            f64_s = time.perf_counter() - t0
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         loss = float(step(imgs.to(device), gt.to(device)))
         seconds = time.perf_counter() - t0
         counts = kernels.launch_counts()
-        grads = {k: t.grad.detach().float().cpu() for k, t in trainable_tensors(model).items()}
+        grads = {k: t.grad.detach().double().cpu() for k, t in trainable_tensors(model).items()}
         results[device] = (loss, grads, counts, seconds)
         del model, step
         torch.cuda.empty_cache()
@@ -1467,63 +1475,123 @@ def train_hold(est, batch, src_hw, per_step, phase="train_hold"):
     check(sum(cpu_counts.values()) == 0, f"{phase}: the CPU step launched kernels {cpu_counts}")
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     check(math.isfinite(loss_g) and loss_rel < 1e-3, f"{phase}: loss {loss_g} vs cpu {loss_c}, abs-rel {loss_rel}")
-    check(sorted(grads_g) == sorted(grads_c), f"{phase}: trainable tensors differ")
+    check(sorted(grads_g) == sorted(grads_c) == sorted(grads64), f"{phase}: trainable tensors differ")
     top = max(float(g.abs().max()) for g in grads_c.values())
     check(top > 0 and all(torch.isfinite(g).all() for g in grads_g.values()), f"{phase}: gradients zero or not finite")
     diff = {k: float((grads_g[k] - gc).abs().max()) for k, gc in grads_c.items()}
-    own = {k: diff[k] / float(gc.abs().max()) for k, gc in grads_c.items() if gc.abs().max() > 0}
-    zeros = sorted(k for k, gc in grads_c.items() if gc.abs().max() == 0)
-    for k in zeros:
-        check(diff[k] == 0, f"{phase}: {k} has no gradient on the CPU but has on the card")
     worst = max(diff, key=diff.get)
+
+    def own_scaled(grads):  # each tensor's max |g − g64| over its own max |g64|
+        return {k: float((grads[k] - g64).abs().max()) / float(g64.abs().max())
+                for k, g64 in grads64.items() if g64.abs().max() > 0}
+
+    own_card, own_cpu = own_scaled(grads_g), own_scaled(grads_c)
+    zeros = sorted(k for k, g64 in grads64.items() if g64.abs().max() == 0)
+    for k in zeros:
+        check(grads_g[k].abs().max() == 0, f"{phase}: {k} has no float64 gradient but has one on the card")
+    tail = lambda own: {k: own[k] for k in sorted(own, key=own.get)[-5:]}  # noqa: E731
     emit(phase, model=est.model_type, batch=batch, src_hw=list(src_hw), loss=loss_g, cpu_loss=loss_c,
-         loss_abs_rel=loss_rel, tensors=len(diff), zero_on_cpu=zeros, max_scaled=diff[worst] / top, worst=worst,
-         largest_grad=top, own_scaled_worst={k: own[k] for k in sorted(own, key=own.get)[-5:]},
-         own_scaled_over_1e3=sum(v >= 1e-3 for v in own.values()), launches=counts, first_step_s_card=gpu_s,
-         cpu_step_s=cpu_s)
+         float64_loss=loss64, loss_abs_rel=loss_rel, tensors=len(diff), zero_in_float64=zeros,
+         max_scaled=diff[worst] / top, worst=worst, largest_grad=top, tensor_tol=tensor_tol,
+         card_own_scaled_worst=tail(own_card), cpu_own_scaled_worst=tail(own_cpu),
+         card_own_scaled_over_1e3=sum(v >= 1e-3 for v in own_card.values()),
+         cpu_own_scaled_over_1e3=sum(v >= 1e-3 for v in own_cpu.values()), launches=counts,
+         first_step_s_card=gpu_s, cpu_step_s=cpu_s, float64_s=f64_s)
     check(diff[worst] / top < 1e-3, f"{phase}: gradient of {worst} off the CPU's by {diff[worst] / top} (max-scaled)")
+    card_worst = max(own_card, key=own_card.get)
+    check(own_card[card_worst] < tensor_tol,
+          f"{phase}: gradient of {card_worst} {own_card[card_worst]} of its own max from float64 (over {tensor_tol})")
     return counts
+
+
+def live_head(est, imgs):
+    """``est``'s weights with the bias of its head's last convolution raised
+    so that on ``imgs`` every pre-activation of the non-negative output
+    lies at least their standard deviation above 0. The random DPT_Large
+    outputs zero at a third of its pixels, and the first AdamW steps (each
+    tensor moved by about lr·sign(g)) drive the rest below 0 too: the
+    output is all zero from step 2 on, each loss a function of its batch
+    alone. Raised, it stays above 0 through 8 steps at lr 1e-4."""
+    from depth_estimation_tpu_torch.train.data import TrainingApply
+
+    seen = []
+    last = est.model.scratch.output_conv[4]
+    hook = last.register_forward_hook(lambda mod, args, out: seen.append(out.detach()))
+    try:
+        with torch.no_grad():
+            TrainingApply(est.model, est.preprocess_cfg)(imgs)
+    finally:
+        hook.remove()
+    pre = seen[0]
+    sd = {k: v.detach().cpu().clone() for k, v in est.model.state_dict().items()}
+    sd["scratch.output_conv.4.bias"] += float(pre.std() - pre.min())
+    return sd
 
 
 def run_train(est, phase="train", batch=2, src_hw=(240, 320), steps=8, ckpt_every=4, timed_steps=5):
     """``fit`` of DPT_Large on the card over u8 ``synthetic_pairs`` batches
-    (4 a pass, so a resumed run sees the batches the straight one saw): 8
-    straight steps (launches K1 24, K2 1, K3 1 a step), then 4 steps with a
-    checkpoint every 4, the restored tensors and moments equal bit for bit
-    to the saved ones, and a run resumed from it to step 8, whose losses lie
-    within 1e-4 relative of the straight run's (cuDNN may choose other
-    algorithms, so bitwise is asked of the CPU only); the largest difference
-    of the two runs' final tensors is printed. Then ms per step (CUDA
-    events, ``timed_steps`` steps after the runs), images/s, the peak memory
-    of the steps, and the share of the trained model's output that is not
-    zero (on these random weights the first AdamW step drives the
-    non-negative head to zero, after which a pass's losses repeat)."""
+    (4 a pass, so a resumed run sees the batches the run it resumes saw),
+    from ``live_head``'s weights: 8 straight steps (launches K1 24, K2 1, K3
+    1 a step; the output not zero, and steps 2 and 6, one batch, at other
+    losses); then 4 steps with a checkpoint at step 4, whose restored
+    tensors and moments equal the saved ones bit for bit. From that state
+    the same optimizer continues 4 steps in memory, and ``fit`` resumes from
+    the file to step 8. Their first two losses, which the restored weights
+    (step 5) and moments and step counts (step 6) decide, lie within
+    1e-4 relative, all four within 1e-3: the card's
+    atomic adds in the bilinear upsampling's backward differ run to run, and
+    the random net's AdamW steps amplify that, to 1.0e-4 by step 8 (and
+    some 4% between two runs from step 0). As a control, a run resumed from
+    the file with its AdamW moments zeroed must miss 1e-4 (it missed by
+    0.30 at step 6). Then ms per step (CUDA events,
+    ``timed_steps`` steps after the runs), images/s and the peak memory of
+    the steps."""
     from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.train.data import TrainingApply, batches, device_prefetch, synthetic_pairs
     from depth_estimation_tpu_torch.train.loop import fit
     from depth_estimation_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
     from depth_estimation_tpu_torch.utils.checkpoint import load_train_state
 
+    resume_tol, drift_tol = 1e-4, 1e-3
     t_phase = time.perf_counter()
     data = device_prefetch(batches(synthetic_pairs(4 * batch, *src_hw, seed=1), batch), device="cuda")
+    first = next(iter(data))[0]
+    weights = live_head(est, first)
 
     def model():
-        return TrainingApply(train_models(est, "cuda")[0], est.preprocess_cfg)
+        return TrainingApply(DepthEstimator(est.model_type, params=weights, device="cuda", verbose=False).model,
+                             est.preprocess_cfg)
+
+    def resumed_run(ckpt):
+        state, hist = fit(model(), data, steps=steps, ckpt_dir=ckpt, ckpt_every=steps, log_every=1,
+                          verbose=False, device="cuda")
+        check(state.step == steps and [s for s, _ in hist] == list(range(ckpt_every + 1, steps + 1)),
+              f"{phase}: resumed history {hist}")
+        del state
+        torch.cuda.empty_cache()
+        return [loss for _, loss in hist]
 
     kernels.reset_launch_counts()
     straight, hist_a = fit(model(), data, steps=steps, log_every=1, verbose=False, device="cuda")
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     check(counts == launches_per(TRAIN_PER_STEP, steps), f"{phase}: launch counts {counts}")
-    with tempfile.TemporaryDirectory() as ckpt:
+    check(all(math.isfinite(l) for _, l in hist_a), f"{phase}: losses {hist_a}")
+    with torch.no_grad():
+        nonzero = float((straight.model(first) != 0).float().mean())
+    check(nonzero > 0.5 and hist_a[1][1] != hist_a[5][1],
+          f"{phase}: the trained output is {nonzero} non-zero, losses {hist_a}: the net died")
+    with tempfile.TemporaryDirectory() as ckpt, tempfile.TemporaryDirectory() as bad:
         t0 = time.perf_counter()
         half, _ = fit(model(), data, steps=ckpt_every, ckpt_dir=ckpt, ckpt_every=ckpt_every, verbose=False,
                       device="cuda")
         torch.cuda.synchronize()
         half_s = time.perf_counter() - t0
+        state_file = os.path.join(ckpt, "state")
         fresh = model()
         t0 = time.perf_counter()
-        restored = load_train_state(os.path.join(ckpt, "state"), TrainState(fresh, make_optimizer(fresh)))
+        restored = load_train_state(state_file, TrainState(fresh, make_optimizer(fresh)))
         load_s = time.perf_counter() - t0
         check(restored.step == ckpt_every, f"{phase}: restored step {restored.step}")
         saved, back = half.model.state_dict(), restored.model.state_dict()
@@ -1531,20 +1599,22 @@ def run_train(est, phase="train", batch=2, src_hw=(240, 320), steps=8, ckpt_ever
         for sa, sb in zip(half.optimizer.state.values(), restored.optimizer.state.values()):
             check(all(torch.equal(sa[m], sb[m]) for m in ("exp_avg", "exp_avg_sq", "step")),
                   f"{phase}: restored optimizer state differs")
-        del half, fresh, restored, saved, back
+        del fresh, restored, saved, back
+        zeroed = torch.load(state_file, map_location="cpu", weights_only=True)
+        for st in zeroed["optimizer"]["state"].values():
+            st["exp_avg"].zero_()
+            st["exp_avg_sq"].zero_()
+        torch.save(zeroed, os.path.join(bad, "state"))
+        del zeroed
+        step = make_train_step(half.model, half.optimizer)
+        continued = [float(step(imgs, gt)) for _, (imgs, gt) in zip(range(steps - ckpt_every), data)]
+        del half, step
         torch.cuda.empty_cache()
-        resumed, hist_b = fit(model(), data, steps=steps, ckpt_dir=ckpt, ckpt_every=ckpt_every, log_every=1,
-                              verbose=False, device="cuda")
-        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "state"))
-    check(resumed.step == steps and [s for s, _ in hist_b] == list(range(ckpt_every + 1, steps + 1)),
-          f"{phase}: resumed history {hist_b}")
-    straight_tail = [l for s, l in hist_a if s > ckpt_every]
-    rel = max(abs(a - b) / abs(b) for (_, a), b in zip(hist_b, straight_tail))
-    check(rel < 1e-4, f"{phase}: resumed losses {hist_b} vs straight {straight_tail}, max rel {rel}")
-    check(all(math.isfinite(l) for _, l in hist_a), f"{phase}: losses {hist_a}")
-    final, back = straight.model.state_dict(), resumed.model.state_dict()
-    resumed_diff = max(float((final[k] - back[k]).abs().max()) for k in final)
-    del resumed, final, back
+        resumed = resumed_run(ckpt)
+        ckpt_bytes = os.path.getsize(state_file)
+        control = resumed_run(bad)
+    rel = lambda got, n=2: max(abs(a - b) / abs(b) for a, b in zip(got[:n], continued))  # noqa: E731
+    resumed_rel, drift, control_rel = rel(resumed), rel(resumed, steps), rel(control)
     # ms per step on the card, inputs already there, after the runs' set-up
     step = make_train_step(straight.model, straight.optimizer)
     imgs, gt = next(iter(data))
@@ -1560,14 +1630,16 @@ def run_train(est, phase="train", batch=2, src_hw=(240, 320), steps=8, ckpt_ever
         end.synchronize()
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
-    with torch.no_grad():
-        nonzero = float((straight.model(imgs) != 0).float().mean())
     emit(phase, model=est.model_type, batch=batch, src_hw=list(src_hw), steps=steps, losses=hist_a,
-         resumed_losses=hist_b, resumed_max_rel=rel, resumed_tensors_max_abs_diff=resumed_diff,
-         trained_output_nonzero_share=nonzero, launches=counts, ms_per_step=ms, step_ms=times,
-         images_per_s=batch / ms * 1e3, peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         checkpoint_bytes=ckpt_bytes, checkpoint_run_s=half_s, checkpoint_load_s=load_s,
-         seconds=time.perf_counter() - t_phase)
+         trained_output_nonzero_share=nonzero, continued_losses=continued, resumed_losses=resumed,
+         resumed_first_two_max_rel=resumed_rel, resumed_max_rel=drift, control_zeroed_moments_losses=control,
+         control_first_two_max_rel=control_rel, resume_tol=resume_tol, drift_tol=drift_tol, launches=counts,
+         ms_per_step=ms, step_ms=times, images_per_s=batch / ms * 1e3,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), checkpoint_bytes=ckpt_bytes, checkpoint_run_s=half_s,
+         checkpoint_load_s=load_s, seconds=time.perf_counter() - t_phase)
+    check(resumed_rel < resume_tol and drift < drift_tol,
+          f"{phase}: resumed losses {resumed} vs continued {continued}, max rel {resumed_rel} (first two), {drift}")
+    check(control_rel >= resume_tol, f"{phase}: zeroed moments resumed within {resume_tol}: {control} vs {continued}")
     del straight, step
     torch.cuda.empty_cache()
     return counts
@@ -1777,9 +1849,9 @@ def main():
     # family against the CPU, fit with a checkpoint and a resume, the evaluate CLI
     with full_f32():
         grad_rows = check_kernel_grads(gen)
-    train_hold(est, 2, (240, 320), TRAIN_PER_STEP)
+    train_hold(est, 2, (240, 320), TRAIN_PER_STEP, 4e-3)
     midas_train_launches = train_hold(midas, 1, (192, 256), {**TRAIN_PER_STEP, "multi_head_attention": 0,
-                                                             "grouped_conv3x3": 60}, "midas_train_hold")
+                                                             "grouped_conv3x3": 60}, 2.5e-2, "midas_train_hold")
     del midas
     torch.cuda.empty_cache()
     train_launches = run_train(est)

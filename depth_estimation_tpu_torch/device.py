@@ -86,3 +86,10 @@ def conv_algorithms_by_timing():
     batch 4 than at batch 1. Timing changes which algorithm runs, not the
     type: f32 stays f32 under ``full_f32``."""
     return _TIMED_CONVS()
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own type where that is wider: the plain
+    versions compute in f32, and a float64 input (a gradient reference) in
+    float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))

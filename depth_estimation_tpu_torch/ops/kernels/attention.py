@@ -26,7 +26,9 @@ source note gives the fragment layouts.
 
 ``attention_plain`` is the plain PyTorch version with the semantics of the
 JAX package's ``_attention_xla``: f32 logits, softmax, probabilities cast to
-the input type, f32 product with V, output in the input type.
+the input type, f32 product with V, output in the input type. A float64
+input is computed in float64 throughout (a gradient reference, never a
+kernel input).
 ``multi_head_attention`` takes it for CPU tensors and launches the kernel
 for CUDA tensors.
 
@@ -48,7 +50,7 @@ import math
 
 import torch
 
-from depth_estimation_tpu_torch.device import full_f32
+from depth_estimation_tpu_torch.device import at_least_f32, full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 
 HEAD_DIM = 64
@@ -57,18 +59,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", at_least_f32(q), at_least_f32(k)) * scale
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", at_least_f32(probs), at_least_f32(v)).to(q.dtype)
 
 
 def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor):
     """(dQ, dK, dV) of softmax(QKᵀ/√D)V for the output gradient ``do``, in
-    f32 from P recomputed, each cast to its input's dtype. ``o`` is the
-    forward's output."""
+    f32 (float64 for float64 inputs) from P recomputed, each cast to its
+    input's dtype. ``o`` is the forward's output."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    qf, kf, vf, of, dof = (at_least_f32(t) for t in (q, k, v, o, do))
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))

@@ -8,7 +8,8 @@ ResNeXt-101 32x8d bottleneck of MiDaS v2.1. The kernel is
 ``grouped_conv3x3_plain`` is the plain PyTorch version: im2col
 (``F.unfold``) and one matmul with the group as a batch dimension, the form
 of the JAX package's ``_batched_matmul_grouped_conv``, in f32 with the
-output cast to the input type. ``grouped_conv3x3`` takes it for CPU tensors
+output cast to the input type (a float64 input, a gradient reference, is
+computed in float64). ``grouped_conv3x3`` takes it for CPU tensors
 and launches the kernel for CUDA tensors.
 
 Layouts: x (B, C, H, W); weight (C, C/G, 3, 3), as ``nn.Conv2d(groups=G)``
@@ -36,7 +37,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from depth_estimation_tpu_torch.device import full_f32
+from depth_estimation_tpu_torch.device import at_least_f32, full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,15 +53,19 @@ def _check_shapes(x: torch.Tensor, weight: torch.Tensor, groups: int) -> None:
         raise ValueError(f"weight shape {tuple(weight.shape)} != ({c}, {c // groups}, 3, 3)")
 
 
-def grouped_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
-    """(B, C, H, W) → (B, C, H, W) in x's dtype, computed in f32."""
-    _check_shapes(x, weight, groups)
+def _patches(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """im2col of x: (B, G, C/G·9, H·W), rows ordered (ci, kh, kw)."""
     b, c, h, w = x.shape
-    cg = c // groups
-    patches = F.unfold(x.float(), 3, padding=1)  # (B, C·9, H·W), rows ordered (c, kh, kw)
-    patches = patches.reshape(b, groups, cg * 9, h * w)
-    wk = weight.float().reshape(groups, cg, cg * 9)  # (G, out, (ci, kh, kw))
-    return torch.matmul(wk, patches).reshape(b, c, h, w).to(x.dtype)
+    return F.unfold(at_least_f32(x), 3, padding=1).reshape(b, groups, c // groups * 9, h * w)
+
+
+def grouped_conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, C, H, W) → (B, C, H, W) in x's dtype, computed in f32 (float64
+    for a float64 x)."""
+    _check_shapes(x, weight, groups)
+    c = x.shape[1]
+    wk = at_least_f32(weight).reshape(groups, c // groups, c // groups * 9)  # (G, out, (ci, kh, kw))
+    return torch.matmul(wk, _patches(x, groups)).reshape(x.shape).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,11 +81,10 @@ def _lib():
 
 def weight_grad_plain(x: torch.Tensor, dy: torch.Tensor, groups: int) -> torch.Tensor:
     """dW of ``grouped_conv3x3_plain`` for the output gradient ``dy``, in
-    f32, cast to x's dtype: (C, C/G, 3, 3)."""
+    f32 (float64 for float64 inputs), cast to x's dtype: (C, C/G, 3, 3)."""
     b, c, h, w = x.shape
     cg = c // groups
-    patches = F.unfold(x.float(), 3, padding=1).reshape(b, groups, cg * 9, h * w)
-    dw = torch.matmul(dy.float().reshape(b, groups, cg, h * w), patches.transpose(-1, -2)).sum(0)
+    dw = torch.matmul(at_least_f32(dy).reshape(b, groups, cg, h * w), _patches(x, groups).transpose(-1, -2)).sum(0)
     return dw.reshape(c, cg, 3, 3).to(x.dtype)
 
 

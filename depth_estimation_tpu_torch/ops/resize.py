@@ -18,6 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from depth_estimation_tpu_torch.device import at_least_f32
+
 _CUBIC_A = -0.75  # Keys kernel sharpness used by OpenCV and PyTorch
 
 
@@ -87,8 +89,8 @@ def interp_matrix(
     return _interp_matrix_cached(int(in_size), int(out_size), method, bool(align_corners))
 
 
-def _matrix(in_size, out_size, method, align_corners, device) -> torch.Tensor:
-    return torch.from_numpy(interp_matrix(in_size, out_size, method, align_corners)).to(device)
+def _matrix(in_size, out_size, method, align_corners, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(interp_matrix(in_size, out_size, method, align_corners)).to(device, dtype)
 
 
 def resize2d(
@@ -100,8 +102,8 @@ def resize2d(
     """Resize the two spatial dims of ``img`` (…, H, W, C) or (H, W).
 
     Spatial dims are the last two when ``img.ndim == 2``, otherwise dims -3
-    and -2 (NHWC / HWC). Computes in float32 and casts back to a floating
-    input's dtype."""
+    and -2 (NHWC / HWC). Computes in float32 (float64 for a float64 input)
+    and casts back to a floating input's dtype."""
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
     squeeze2d = img.ndim == 2
     if squeeze2d:
@@ -111,11 +113,11 @@ def resize2d(
         return img[..., 0] if squeeze2d else img
 
     dtype = img.dtype
-    x = img.to(torch.float32)
+    x = at_least_f32(img)
     if in_h != out_h:
-        x = torch.einsum("oh,...hwc->...owc", _matrix(in_h, out_h, method, align_corners, x.device), x)
+        x = torch.einsum("oh,...hwc->...owc", _matrix(in_h, out_h, method, align_corners, x.device, x.dtype), x)
     if in_w != out_w:
-        x = torch.einsum("ow,...hwc->...hoc", _matrix(in_w, out_w, method, align_corners, x.device), x)
+        x = torch.einsum("ow,...hwc->...hoc", _matrix(in_w, out_w, method, align_corners, x.device, x.dtype), x)
     if dtype.is_floating_point:
         x = x.to(dtype)
     return x[..., 0] if squeeze2d else x

@@ -6,8 +6,10 @@
 * ``gradient_matching_loss`` — multi-scale gradient matching regularizer.
 
 They compute what the JAX package computes, gradients through s and t
-included; ``torch.quantile``'s linear interpolation is ``jnp.quantile``'s
-default.
+included. The trim's cut is ``jnp.quantile``'s default linear interpolation
+between two order statistics of each image, taken with ``torch.kthvalue``:
+``torch.quantile`` refuses more than 2^24 values, a batch of 86 at DPT's
+384×512.
 """
 
 from __future__ import annotations
@@ -31,6 +33,17 @@ def _lstsq_scale_shift(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor)
     return s, t
 
 
+def _row_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x, q, axis=1, keepdims=True)`` (linear) of a (B, N) tensor."""
+    n = x.shape[1]
+    pos = torch.tensor(q, dtype=x.dtype) * (n - 1)
+    low, high = int(torch.floor(pos)), int(torch.ceil(pos))
+    high_weight = pos - low
+    low_value = torch.kthvalue(x, min(max(low, 0), n - 1) + 1, dim=1, keepdim=True).values
+    high_value = torch.kthvalue(x, min(max(high, 0), n - 1) + 1, dim=1, keepdim=True).values
+    return low_value * (1 - high_weight) + high_value * high_weight
+
+
 def ssi_loss(pred: torch.Tensor, gt: torch.Tensor, mask: Optional[torch.Tensor] = None,
              trim: float = 0.2) -> torch.Tensor:
     """Scale-shift-invariant trimmed MAE over (B, H, W) disparity maps."""
@@ -42,7 +55,7 @@ def ssi_loss(pred: torch.Tensor, gt: torch.Tensor, mask: Optional[torch.Tensor] 
         # trim the largest `trim` fraction of residuals per image
         b = err.shape[0]
         flat = err.reshape(b, -1)
-        cut = torch.quantile(flat.detach(), 1.0 - trim, dim=1, keepdim=True, interpolation="linear")
+        cut = _row_quantile(flat.detach(), 1.0 - trim)
         flat = torch.where(flat <= cut, flat, torch.zeros_like(flat))
         denom = (mask.reshape(b, -1).sum(dim=1) * (1.0 - trim)).clamp_min(1.0)
         return (flat.sum(dim=1) / denom).mean()

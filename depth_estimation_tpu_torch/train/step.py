@@ -12,18 +12,25 @@ with no mask, p − lr·wd·p − lr·m̂/(√v̂ + eps), which is
 The step runs under the frame program's f32 numerics (``device.full_f32``,
 ``device.conv_algorithms_by_timing``), so on the card it goes through the
 kernels (K1, K2, K3, and K4 for MiDaS v2.1) and their autograd Functions.
+
+``float64_gradients`` is the step's loss and gradients in float64 on the
+CPU, the reference that f32 gradients, the card's and the CPU's, are held
+against.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32
 from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
+from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
+from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.train.losses import gradient_matching_loss, ssi_loss
 
 
@@ -93,3 +100,25 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, alpha: f
         return loss.detach()
 
     return step
+
+
+def float64_gradients(apply: nn.Module, images: torch.Tensor, gt: torch.Tensor,
+                      alpha: float = 0.5) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """The loss and every trainable tensor's gradient of one step of
+    ``apply`` (a ``train.data.TrainingApply``) on a u8 batch, in float64 on
+    the CPU: a float64 copy of the model, whose plain attention, grouped
+    convolution and resizes compute in the input's type, on the f32 network
+    input of the plain preprocess, resized back by the same cubic matrices.
+    ``apply`` is left as it was."""
+    with torch.no_grad():  # buffers that require grad stay leaves when moved
+        model = copy.deepcopy(apply.model).to("cpu", torch.float64)
+    tensors = trainable_tensors(model)
+    for t in tensors.values():
+        t.grad = None
+    cfg = apply.preprocess_cfg
+    src_hw = (int(images.shape[1]), int(images.shape[2]))
+    net_hw = apply.net_hw or compute_resize_shape(*src_hw, cfg)
+    x = fused_preprocess(images.cpu().contiguous(), net_hw, cfg.mean, cfg.std, bgr_to_rgb=apply.bgr).double()
+    loss = loss_fn(lambda t: resize_planes(model(t), src_hw), x, gt.cpu().double(), alpha)
+    loss.backward()
+    return float(loss.detach()), {k: t.grad for k, t in tensors.items()}

@@ -529,21 +529,24 @@ def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
     """One train step of a full-width family on the card (its kernels and
     their Functions) against the same weights on the CPU: the
     loss within 1e-3 abs-rel, and the gradient, every trainable tensor as
-    one vector, within 1e-3 of the CPU's largest value (on random weights
-    every f32 implementation lands some tensors 1e-3 to 4e-2 of their own
-    largest value from float64: tools/train_grad_precision.py)."""
+    one vector, within 1e-3 of the CPU's largest value; each tensor within
+    2.5e-2 of its own largest value from the float64 gradient (on random
+    weights sound f32 gradients land MiDaS tensors up to 7.4e-3 off, TF32
+    up to 9.6e-2: tools/train_grad_precision.py)."""
     import warnings
 
     from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.train.data import TrainingApply, synthetic_pairs
-    from depth_estimation_tpu_torch.train.step import make_optimizer, make_train_step, trainable_tensors
+    from depth_estimation_tpu_torch.train.step import (float64_gradients, make_optimizer, make_train_step,
+                                                      trainable_tensors)
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         est = DepthEstimator(name, seed=0, verbose=False)
     img, gt = next(synthetic_pairs(1, *hw, seed=2))
     img, gt = torch.from_numpy(img[None]), torch.from_numpy(gt[None])
+    ref = float64_gradients(TrainingApply(est.model, est.preprocess_cfg), img, gt)[1]
     out = {}
     for device in ("cuda", "cpu"):
         model = DepthEstimator(name, params={k: v.cpu() for k, v in est.model.state_dict().items()},
@@ -561,3 +564,6 @@ def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
     for k, g in gc.items():
         err = float((gg[k] - g).abs().max())
         assert err / top < 1e-3 and (err == 0 or float(g.abs().max()) > 0), k
+    for k, g64 in ref.items():
+        err = float((gg[k].double() - g64).abs().max())
+        assert err <= 2.5e-2 * float(g64.abs().max()), (k, err / float(g64.abs().max()))

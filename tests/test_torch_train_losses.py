@@ -16,6 +16,7 @@ from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
+from depth_estimation_tpu_torch.ops.resize import interp_matrix
 from depth_estimation_tpu_torch.train import losses as tl
 from depth_estimation_tpu_torch.train import metrics as tm
 from depth_estimation_tpu_torch.train.step import make_optimizer
@@ -51,6 +52,22 @@ def test_ssi_loss_matches_jax(trim, masked):
     got, got_g = _value_and_grad_torch(lambda p, g, m: tl.ssi_loss(p, g, m, trim=trim), pred, gt, mask)
     _assert_close(got, want)
     _assert_close(got_g, want_g)
+
+
+def test_ssi_loss_trims_a_batch_of_more_than_2_24_values_as_jax():
+    """A batch of 1026 maps of 128×128, 16.8M values, past the 2^24 that
+    ``torch.quantile`` takes: three distinct images, each repeated 342
+    times, so the loss is JAX's over the three and each map's gradient
+    JAX's over 342 (a cut taken over the whole batch would mix them)."""
+    pred, gt, _ = _maps(3, b=3, h=128, w=128)
+    gt[1] *= 4.0
+    reps = 342
+    want, want_g = jax.value_and_grad(lambda p: jl.ssi_loss(p, gt))(pred)
+    big_pred, big_gt = np.tile(pred, (reps, 1, 1)), np.tile(gt, (reps, 1, 1))
+    assert big_pred.size > 2 ** 24
+    got, got_g = _value_and_grad_torch(tl.ssi_loss, big_pred, big_gt)
+    _assert_close(got, want)
+    _assert_close(got_g.reshape(reps, 3, 128, 128), np.broadcast_to(np.asarray(want_g) / reps, (reps, 3, 128, 128)))
 
 
 def test_gradient_matching_loss_matches_jax():
@@ -182,6 +199,40 @@ def test_grouped_conv_backward_plain_pieces():
     assert wt.is_contiguous() and wt.shape == w.shape
     torch.testing.assert_close(tgc.grouped_conv3x3_plain(dy, wt, 4), want_dx, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(tgc.weight_grad_plain(x, dy, 4), want_dw, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["attention", "attention_backward", "grouped_conv", "grouped_conv_dw", "resize"])
+def test_plain_versions_compute_float64_in_float64(case):
+    """A float64 input runs the plain attention, grouped convolution,
+    their backwards and the resize in float64 (``train.step.float64_gradients``
+    relies on it): within 1e-12 of float64 PyTorch, where f32 lands some 1e-7 off."""
+    g = torch.Generator().manual_seed(4)
+    if case.startswith("attention"):
+        q, k, v, do = (torch.randn((1, 2, 17, 64), generator=g, dtype=torch.float64) for _ in range(4))
+        if case == "attention":
+            got = [tatt.attention_plain(q, k, v)]
+            want = [torch.softmax(q @ k.transpose(-1, -2) / 8, dim=-1) @ v]
+        else:
+            got = tatt.attention_backward_plain(q, k, v, tatt.attention_plain(q, k, v), do)
+            want = _autograd(lambda a, b, c: torch.softmax(a @ b.transpose(-1, -2) / 8, dim=-1) @ c, q, k, v,
+                             upstream=do)
+    elif case.startswith("grouped_conv"):
+        x, dy = (torch.randn((1, 16, 7, 9), generator=g, dtype=torch.float64) for _ in range(2))
+        w = torch.randn((16, 4, 3, 3), generator=g, dtype=torch.float64)
+        if case == "grouped_conv":
+            got = [tgc.grouped_conv3x3_plain(x, w, 4)]
+            want = [torch.nn.functional.conv2d(x, w, padding=1, groups=4)]
+        else:
+            got = [tgc.weight_grad_plain(x, dy, 4)]
+            want = [torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=1, groups=4)]
+    else:
+        x = torch.randn((2, 12, 16), generator=g, dtype=torch.float64)
+        got = [trsz.resize_planes_plain(x, (20, 28))]
+        wh, ww = (torch.from_numpy(interp_matrix(n, m)).double() for n, m in ((12, 20), (16, 28)))
+        want = [wh @ x @ ww.T]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-12)
 
 
 @pytest.mark.parametrize("kernel", ["attention", "resize", "grouped_conv"])

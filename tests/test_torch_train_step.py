@@ -35,7 +35,8 @@ from depth_estimation_tpu_torch.config import DPT_PREPROCESS, SMALL_PREPROCESS
 from depth_estimation_tpu_torch.models.dpt import DPT
 from depth_estimation_tpu_torch.models.midas_v21 import MidasV21
 from depth_estimation_tpu_torch.train.data import TrainingApply
-from depth_estimation_tpu_torch.train.step import make_optimizer, make_train_step, trainable_tensors
+from depth_estimation_tpu_torch.train.step import (float64_gradients, loss_fn, make_optimizer, make_train_step,
+                                                  trainable_tensors)
 from depth_estimation_tpu_torch.utils.convert import params_from_jax, params_from_jax_midas_v21
 from tests.oracles import dpt_torch as dpt_oracle
 from tests.oracles import midas_v21_torch as v21_oracle
@@ -113,6 +114,35 @@ def test_train_step_matches_jax(name):
     with torch.backends.mkldnn.flags(enabled=False):
         losses += [float(step(imgs_t, gt_t)) for _ in range(2)]
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["dpt", "midas_v21"])
+def test_float64_gradients_hold_both_packages(name):
+    """``float64_gradients`` is every trainable tensor's gradient in
+    float64, and the JAX package's f32 gradient and the port's lie within
+    1e-4 (max-scaled over the model) of it; the model it copies is left as
+    it was."""
+    jmodel, jcfg, jparams, to_port, model, cfg = _family(name)
+    imgs, gt = _batch()
+    japply = make_training_apply(jmodel, jcfg, net_hw=NET_HW)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jstep.loss_fn(japply, p, imgs, gt)))({"params": jparams})
+    model.load_state_dict(to_port(jparams))
+    make_optimizer(model)  # as a trainer holds it: the frozen batch norms' buffers require grad
+    apply = TrainingApply(model, cfg, net_hw=NET_HW)
+    imgs_t, gt_t = torch.from_numpy(imgs), torch.from_numpy(gt)
+    loss64, ref = float64_gradients(apply, imgs_t, gt_t)
+    assert sorted(ref) == sorted(trainable_tensors(model)) and all(g.dtype == torch.float64 for g in ref.values())
+    assert all(t.dtype == torch.float32 and t.grad is None for t in trainable_tensors(model).values())
+    with torch.backends.mkldnn.flags(enabled=False):
+        loss = loss_fn(apply, imgs_t, gt_t)
+        loss.backward()
+    got = {k: t.grad.double() for k, t in trainable_tensors(model).items()}
+    want = {k: v.double() for k, v in to_port(jax.tree_util.tree_map(np.asarray, jgrads)).items()}
+    top = max(float(g.abs().max()) for g in ref.values())
+    for grads in (got, want):
+        assert max(float((grads[k] - ref[k]).abs().max()) for k in ref) / top < 1e-4
+    np.testing.assert_allclose([float(loss), float(jloss)], [loss64, loss64], rtol=1e-5)
 
 
 def test_accumulated_step_equals_one():

@@ -5,13 +5,16 @@
 
 For each model (random weights from seed 0; DPT_Large at batch 2 from
 240×320, MiDaS v2.1 at batch 1 from 192×256) the float64 gradient of the
-train step's loss (SSI + 0.5 · gradient matching) is computed on the CPU,
-then the f32 gradient on the CPU (oneDNN off and on) and on the card (the
-train step's numerics; and with cuDNN off, ATen's own CUDA convolutions).
-Prints one JSON line a model: each variant's loss, and each tensor's
-max |g − g64| over max |g64| of that tensor, as the number of tensors over
-1e-3 and 1e-4 and the worst eight, beside the same over the largest
-gradient of the model. Needs a CUDA GPU.
+train step's loss (SSI + 0.5 · gradient matching) is computed on the CPU
+(``train.step.float64_gradients``). Then the f32 gradient on the CPU
+(oneDNN off and on) and on the card (the train step's numerics; with cuDNN
+off, ATen's own CUDA convolutions; and, as a control that a gate must
+fail, with TF32 allowed in cuBLAS and cuDNN). Prints one JSON line a model:
+each variant's loss, and each tensor's max |g − g64| over max |g64| of that
+tensor, as the number of tensors over 1e-2, 1e-3 and 1e-4 and the worst eight,
+beside the same over the largest gradient of the model; and the card's
+gradient against the CPU's (oneDNN on) in the same two forms. Needs a CUDA
+GPU.
 """
 
 import argparse
@@ -21,17 +24,13 @@ import sys
 import time
 import warnings
 
-import numpy as np
 import torch
 
 sys.path.insert(0, __file__.rsplit("/tools/", 1)[0])
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32  # noqa: E402
 from depth_estimation_tpu_torch.estimator import DepthEstimator  # noqa: E402
-from depth_estimation_tpu_torch.ops.kernels.resize import preprocess_plain  # noqa: E402
-from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape  # noqa: E402
-from depth_estimation_tpu_torch.ops.resize import interp_matrix  # noqa: E402
 from depth_estimation_tpu_torch.train.data import TrainingApply, batches, synthetic_pairs  # noqa: E402
-from depth_estimation_tpu_torch.train.step import loss_fn, trainable_tensors  # noqa: E402
+from depth_estimation_tpu_torch.train.step import float64_gradients, loss_fn, trainable_tensors  # noqa: E402
 
 SHAPES = {"DPT_Large": (2, (240, 320)), "MiDaS": (1, (192, 256))}
 
@@ -51,8 +50,18 @@ def report(got, ref, top=8):
     own = {k: diff[k] / max(float(ref[k].abs().max()), 1e-300) for k in ref}
     largest = max(float(r.abs().max()) for r in ref.values())
     worst = sorted(own, key=own.get)[-top:]
-    return {"own_over_1e-3": sum(e >= 1e-3 for e in own.values()), "own_over_1e-4": sum(e >= 1e-4 for e in own.values()),
+    return {**{f"own_over_{t}": sum(e >= float(t) for e in own.values()) for t in ("1e-2", "1e-3", "1e-4")},
             "own_worst": {k: own[k] for k in reversed(worst)}, "max_scaled": max(diff.values()) / largest}
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def stack(*contexts):
@@ -69,27 +78,25 @@ def run(model_type):
     cfg = est.preprocess_cfg
     (imgs, gt), = list(batches(synthetic_pairs(batch, *hw, seed=3), batch, shuffle=False))
     imgs, gt = torch.from_numpy(imgs), torch.from_numpy(gt)
-    net_hw = compute_resize_shape(*hw, cfg)
-    # float64 on the CPU: the plain preprocess, the model and the same resize matrices, in float64
-    m64 = DepthEstimator(model_type, params=sd, device="cpu", verbose=False).model.double()
-    x = preprocess_plain(imgs, net_hw, cfg.mean, cfg.std, False).double()
-    wh, ww = (torch.from_numpy(interp_matrix(n, m).astype(np.float64)) for n, m in zip(net_hw, hw))
-    _, ref = grads(m64, lambda t: wh @ m64(t) @ ww.T, x, gt.double(), torch.backends.mkldnn.flags(enabled=False))
-    del m64
-    out = {"model": model_type, "batch": batch, "src_hw": list(hw)}
+    loss64, ref = float64_gradients(TrainingApply(est.model, cfg), imgs, gt)
+    del est
+    out = {"model": model_type, "batch": batch, "src_hw": list(hw), "loss64": float(loss64)}
     cpu = DepthEstimator(model_type, params=sd, device="cpu", verbose=False).model
+    got = {}
     for label, ctx in (("cpu_onednn_off", lambda: torch.backends.mkldnn.flags(enabled=False)),
                        ("cpu_onednn_on", contextlib.nullcontext)):
         t0 = time.perf_counter()
-        loss, g = grads(cpu, TrainingApply(cpu, cfg), imgs, gt, ctx())
-        out[label] = {"loss": loss, "seconds": time.perf_counter() - t0, **report(g, ref)}
+        loss, got[label] = grads(cpu, TrainingApply(cpu, cfg), imgs, gt, ctx())
+        out[label] = {"loss": loss, "seconds": time.perf_counter() - t0, **report(got[label], ref)}
     del cpu
     card = DepthEstimator(model_type, params=sd, device="cuda", verbose=False).model
     for label, ctx in (("card", lambda: stack(full_f32(), conv_algorithms_by_timing())),
-                       ("card_cudnn_off", lambda: stack(full_f32(), torch.backends.cudnn.flags(enabled=False)))):
+                       ("card_cudnn_off", lambda: stack(full_f32(), torch.backends.cudnn.flags(enabled=False))),
+                       ("control_card_tf32", lambda: stack(conv_algorithms_by_timing(), tf32_allowed()))):
         for _ in range(2):  # the first call at a shape pays cuDNN's search
-            loss, g = grads(card, TrainingApply(card, cfg), imgs.cuda(), gt.cuda(), ctx())
-        out[label] = {"loss": loss, **report(g, ref)}
+            loss, got[label] = grads(card, TrainingApply(card, cfg), imgs.cuda(), gt.cuda(), ctx())
+        out[label] = {"loss": loss, **report(got[label], ref)}
+    out["card_vs_cpu_onednn_on"] = report(got["card"], got["cpu_onednn_on"])
     print(json.dumps(out), flush=True)
 
 
