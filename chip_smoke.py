@@ -130,10 +130,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cache filled by ``import_weights`` (MiDaS_small, 8 synthetic 192×256
    pairs, 1e-4).
 
+16. export, export_cli — the export surface (``utils/export.py``) after the
+   MiDaS phases, f32 at full width: DPT_Large at 480×640 (one frame, and
+   B = 4), MiDaS v2.1 and the fused iris/pose + DPT_Large program exported
+   with ``torch.export``, saved as ``.pt2`` and loaded from disk; the loaded
+   programs against the live ones (max-scaled 1e-6, bitwise said; the fused
+   program's ints and ``valid`` equal), DPT_Large also against the CPU plain
+   path (1e-3) and on a second seed's weights; launches inside one loaded
+   call as the live program's (K1 24, K2 1, K3 1 a DPT_Large call at either
+   batch; K4 30 a MiDaS call; K1 24, K2 3, K3 1 a fused call); a fresh
+   process that imports only torch and the operators loads and runs the
+   DPT_Large artifact without the models; export seconds, archive and
+   weight bytes, loaded and live host ms. Then ``tools.export_program`` for
+   MiDaS_small, its line and its file against a live estimator.
+
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
 fused, detection, staged, server, fused_server, multistream, train (8
-steps of ``fit``) and midas_train_step paths', the backward under ``grad``; K2's
+steps of ``fit``) and midas_train_step paths' and the loaded programs'
+(``export_*``), the backward under ``grad``; K2's
 and K3's for each network input under ``per_shape``, with K2's linear
 route's shapes),
 the ``nvidia-smi`` line, and last
@@ -1695,6 +1710,242 @@ def run_evaluate(tmp, phase="evaluate", model_type="MiDaS_small"):
          launches=counts, seconds=time.perf_counter() - t0)
 
 
+EXPORT_FRAMES = 4
+MIDAS_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 30}
+
+_LOAD_ALONE = """
+import json, sys, time
+import torch
+import depth_estimation_tpu_torch.ops.kernels as kernels
+from depth_estimation_tpu_torch.utils.export import load_frame_program
+
+t0 = time.perf_counter()
+fn = load_frame_program(sys.argv[1])
+load_s = time.perf_counter() - t0
+want = torch.load(sys.argv[2], map_location="cuda")
+fn(want["params"], want["img"])
+torch.cuda.synchronize()
+kernels.reset_launch_counts()
+out = fn(want["params"], want["img"])
+torch.cuda.synchronize()
+counts = kernels.launch_counts()
+ref = want["out"]
+rel = float((out - ref).abs().max() / ref.abs().max())
+port = sorted(m for m in sys.modules if m.startswith("depth_estimation_tpu_torch."))
+print(json.dumps({"launches": counts, "max_abs_rel": rel, "load_seconds": load_s, "modules": port,
+                  "models_imported": any(m.startswith("depth_estimation_tpu_torch.models") for m in port)}))
+"""
+
+
+def weight_bytes(state):
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def host_ms(fn, n=8):
+    """Median host ms of ``n`` calls, each waited for, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def max_scaled(got, want):
+    got, want = (t.float().cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t)).float()
+                 for t in (got, want))
+    return float((got - want).abs().max() / (want.abs().max() + 1e-12))
+
+
+def export_case(name, export, tmp):
+    """Export with ``export()``, save the archive under ``tmp`` and load it
+    back from disk: (loaded program, its path, the export's seconds, archive bytes)."""
+    from depth_estimation_tpu_torch.utils.export import load_frame_program
+
+    t0 = time.perf_counter()
+    blob = export()
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, f"{name}.pt2")
+    with open(path, "wb") as f:
+        f.write(blob)
+    return load_frame_program(path), path, export_s, len(blob)
+
+
+def loaded_launches(call, per_program, phase):
+    from depth_estimation_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == per_program, f"{phase}: launches inside one loaded call {counts} != {per_program}")
+    return counts, out
+
+
+def run_export(est, midas, weights, tmp, phase="export"):
+    """The export surface (``utils/export.py``) on the card, f32, full width:
+    each program exported (``torch.export``), saved as a ``.pt2`` under
+    ``tmp`` and loaded back from disk, then called. DPT_Large at 480×640:
+    4 synthetic frames through the loaded and the live program (max-scaled
+    1e-6, bitwise said), the first against the CPU's plain path (1e-3);
+    launches inside one loaded call K1 24, K2 1, K3 1. The same at B = 4
+    (launches a batch as a frame), MiDaS v2.1 (K4 30 a call), and the fused
+    program on the same DPT_Large with ``detector_weights(seed=0)``: every
+    field against the live fused program (floats max-scaled 1e-6, ints and
+    valid equal; K1 24, K2 3, K3 1). A second seed's DPT_Large state dict
+    through the artifact equals a live estimator on it. A fresh process that
+    imports only torch and the operator registrations loads the DPT_Large
+    artifact, runs it (launches counted there) without importing the models.
+    For each case: export seconds, archive bytes against the weights' bytes,
+    loaded and live host ms a call (median of 8 after a warm call).
+    Returns each case's launches inside one loaded call."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator, random_state_dict
+    from depth_estimation_tpu_torch.runtime.fused import make_fused_iris_frame_fn
+    from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+    from depth_estimation_tpu_torch.utils.export import export_frame_program, export_fused_program
+
+    hw = (480, 640)
+    src = SyntheticSource(EXPORT_FRAMES, *hw)
+    frames = torch.from_numpy(np.stack([src.read()[1] for _ in range(EXPORT_FRAMES)])).cuda()
+    params = est.params
+    rows, launches = {}, {}
+
+    # DPT_Large, one frame a call
+    fn, path, export_s, size = export_case("dpt_large", lambda: export_frame_program(est, hw), tmp)
+    launches["export_dpt_large"], _ = loaded_launches(lambda: fn(params, frames[0]), DPT_PER_PROGRAM, phase)
+    loaded = [fn(params, frames[i]) for i in range(EXPORT_FRAMES)]
+    live = [est._run(frames[i:i + 1])[0] for i in range(EXPORT_FRAMES)]
+    rel = max(max_scaled(a, b) for a, b in zip(loaded, live))
+    check(rel <= 1e-6, f"{phase}: loaded DPT_Large vs live max-scaled {rel} > 1e-6")
+    cpu_est = DepthEstimator("DPT_Large", params={k: v.cpu() for k, v in params.items()}, device="cpu", verbose=False)
+    t0 = time.perf_counter()
+    cpu = cpu_est.predict(frames[0].cpu().numpy())
+    cpu_s = time.perf_counter() - t0
+    del cpu_est
+    cpu_rel = {"loaded": max_scaled(loaded[0], cpu), "live": max_scaled(live[0], cpu)}
+    check(max(cpu_rel.values()) < 1e-3 and np.isfinite(cpu).all() and np.abs(cpu).max() > 0,
+          f"{phase}: DPT_Large against the CPU plain path {cpu_rel}")
+    rows["dpt_large"] = {"in_hw": list(hw), "export_seconds": export_s, "archive_bytes": size,
+                         "weight_bytes": weight_bytes(params), "loaded_vs_live_max_scaled": rel,
+                         "bitwise": all(torch.equal(a, b) for a, b in zip(loaded, live)),
+                         "vs_cpu_max_abs_rel": cpu_rel, "cpu_seconds": cpu_s,
+                         "loaded_host_ms": host_ms(lambda: fn(params, frames[0])),
+                         "live_host_ms": host_ms(lambda: est._run(frames[:1]))}
+
+    # a second checkpoint of the same architecture through the same artifact
+    other = {k: v.cuda() for k, v in random_state_dict(est.model, seed=1).items()}
+    est1 = DepthEstimator("DPT_Large", params=other, verbose=False)
+    swap = max_scaled(fn(other, frames[0]), est1._run(frames[:1])[0])
+    check(swap <= 1e-6, f"{phase}: the seed-1 weights through the artifact vs a live estimator on them {swap}")
+    rows["dpt_large"]["weight_swap_max_scaled"] = swap
+    del est1, other
+
+    # the same artifact in a process that imports only torch and the operators
+    want = os.path.join(tmp, "dpt_large_inputs.pt")
+    torch.save({"params": {k: v.cpu() for k, v in params.items()}, "img": frames[0].cpu(),
+                "out": live[0].cpu()}, want)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _LOAD_ALONE, path, want], capture_output=True, text=True,
+                       timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0, f"{phase}: the load-alone process failed:\n{r.stdout}\n{r.stderr[-4000:]}")
+    alone = json.loads(r.stdout.strip().splitlines()[-1])
+    check(not alone["models_imported"] and alone["launches"] == DPT_PER_PROGRAM and alone["max_abs_rel"] < 1e-3,
+          f"{phase}: the load-alone process {alone}")
+    rows["dpt_large"]["load_alone"] = {**alone, "seconds": time.perf_counter() - t0}
+    os.remove(want)
+
+    # DPT_Large at B = 4
+    fn4, _, export_s, size = export_case("dpt_large_b4", lambda: export_frame_program(
+        est, hw, batched=True, batch=EXPORT_FRAMES), tmp)
+    launches["export_dpt_large_b4"], out4 = loaded_launches(lambda: fn4(params, frames), DPT_PER_PROGRAM, phase)
+    live4 = est._run(frames)
+    rel = max_scaled(out4, live4)
+    check(rel <= 1e-6, f"{phase}: loaded batched DPT_Large vs live max-scaled {rel} > 1e-6")
+    rows["dpt_large_b4"] = {"batch": EXPORT_FRAMES, "export_seconds": export_s, "archive_bytes": size,
+                            "loaded_vs_live_max_scaled": rel, "bitwise": torch.equal(out4, live4),
+                            "loaded_host_ms": host_ms(lambda: fn4(params, frames)),
+                            "live_host_ms": host_ms(lambda: est._run(frames))}
+
+    # MiDaS v2.1
+    mparams = midas.params
+    fnm, _, export_s, size = export_case("midas", lambda: export_frame_program(midas, hw), tmp)
+    launches["export_midas"], outm = loaded_launches(lambda: fnm(mparams, frames[0]), MIDAS_PER_PROGRAM, phase)
+    livem = midas._run(frames[:1])[0]
+    rel = max_scaled(outm, livem)
+    check(rel <= 1e-6, f"{phase}: loaded MiDaS vs live max-scaled {rel} > 1e-6")
+    rows["midas"] = {"export_seconds": export_s, "archive_bytes": size, "weight_bytes": weight_bytes(mparams),
+                     "loaded_vs_live_max_scaled": rel, "bitwise": torch.equal(outm, livem),
+                     "loaded_host_ms": host_ms(lambda: fnm(mparams, frames[0])),
+                     "live_host_ms": host_ms(lambda: midas._run(frames[:1]))}
+
+    # the fused iris/pose + depth program on the same DPT_Large
+    det = make_detector(weights)
+    states = (params, det._face_det.state_dict(), det._mesh.state_dict(), det._pose.state_dict())
+    pts = torch.tensor([[40, 50], [300, 200]], dtype=torch.int32, device="cuda")
+    fnf, _, export_s, size = export_case("fused", lambda: export_fused_program(est, det, hw), tmp)
+    launches["export_fused"], _ = loaded_launches(lambda: fnf(*states, frames[0], pts), FUSED_PER_PROGRAM, phase)
+    live_fn = make_fused_iris_frame_fn(est, det, hw, include_pose=True, emit_depth_map=True)
+    worst, hits = 0.0, 0
+    for i in range(EXPORT_FRAMES):
+        got = fnf(*states, frames[i], pts)
+        want_f = {k: v[0] for k, v in live_fn(frames[i:i + 1], pts[None]).items()}
+        depth = want_f.pop("depth")
+        check(set(got) == set(want_f), f"{phase}: fused fields {sorted(got)} != {sorted(want_f)}")
+        for k, v in want_f.items():
+            if k == "vis_u8":  # bytes may part only where the map lies within 1e-3 of an integer
+                near = (depth - depth.round()).abs() < 1e-3
+                check(not ((got[k] != v) & ~near).any(), f"{phase}: fused vis_u8 differs away from an integer")
+            elif v.dtype.is_floating_point:
+                worst = max(worst, max_scaled(got[k], v))
+            else:
+                check(torch.equal(got[k], v), f"{phase}: fused {k} differs from the live program")
+        hits += int(want_f["valid"][0])
+    check(worst <= 1e-6, f"{phase}: fused floats vs live max-scaled {worst} > 1e-6")
+    rows["fused"] = {"export_seconds": export_s, "archive_bytes": size,
+                     "weight_bytes": sum(weight_bytes(sd) for sd in states), "floats_max_scaled": worst,
+                     "frames_hit": hits, "frames": EXPORT_FRAMES,
+                     "loaded_host_ms": host_ms(lambda: fnf(*states, frames[0], pts)),
+                     "live_host_ms": host_ms(lambda: live_fn(frames[:1], pts[None]))}
+    emit(phase, launches=launches, **rows)
+    return launches
+
+
+def run_export_cli(tmp, phase="export_cli"):
+    """``tools.export_program.main`` for MiDaS_small at 480×640 on the card
+    (random weights from seed 0: the cache is pointed at an empty
+    directory): its closing line, and the written file loaded and run against
+    a live estimator on the same weights (max-scaled 1e-6)."""
+    import contextlib
+    import io
+    import warnings
+
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+    from depth_estimation_tpu_torch.tools import export_program
+    from depth_estimation_tpu_torch.utils.export import load_frame_program
+
+    out = os.path.join(tmp, "midas_small.pt2")
+    os.environ["DEPTH_ESTIMATION_TPU_TORCH_CACHE"] = os.path.join(tmp, "empty_cache")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        export_program.main(["--model-type", "MiDaS_small", "--hw", "480", "640", "--out", out])
+        est = DepthEstimator("MiDaS_small", verbose=False)
+    seconds = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    check(line == f"exported MiDaS_small (480, 640, 3) -> {out} ({os.path.getsize(out)} bytes)",
+          f"{phase}: printed {line!r}")
+    frame = SyntheticSource(1, 480, 640).read()[1]
+    rel = max_scaled(load_frame_program(out)(est.params, frame), est.predict(frame))
+    check(rel <= 1e-6, f"{phase}: the CLI's file vs a live MiDaS_small max-scaled {rel}")
+    emit(phase, line=line, seconds=seconds, loaded_vs_live_max_scaled=rel)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -1814,8 +2065,7 @@ def main():
     torch.cuda.empty_cache()
 
     midas = DepthEstimator("MiDaS", seed=0, device="cuda")
-    midas_per_program = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
-                         "grouped_conv3x3": 30}
+    midas_per_program = MIDAS_PER_PROGRAM
     with tempfile.TemporaryDirectory() as tmp:
         midas_launches, fps = run_stream(midas, os.path.join(tmp, "midas.avi"), 1, midas_per_program,
                                          "midas_stream")
@@ -1825,6 +2075,12 @@ def main():
     profile_frames(midas, frame, "midas_profile")
     profile_frames(midas, frame, "midas_profile", batch=MICROBATCH, max_calls=2000)
     profile_frames(bf16_mode(midas, frame, 0.1, midas_per_program, "midas_bf16"), frame, "midas_bf16_profile")
+
+    # the export surface: DPT_Large (one frame, B = 4, fused) and MiDaS v2.1 through torch.export
+    with tempfile.TemporaryDirectory() as tmp:
+        export_launches = run_export(est, midas, weights, tmp)
+        run_export_cli(tmp)
+    torch.cuda.empty_cache()
 
     family_launches = {}
     for name, prefix, net_cfg, k1, bound in [("MiDaS_small", "small", SMALL_PREPROCESS, 0, 0.1),
@@ -1863,7 +2119,7 @@ def main():
                 "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
                 "detection": detection_launches, "staged_iris": staged_launches, "server": server_launches,
                 "fused_server": fused_server_launches, "multistream": multistream_launches,
-                "train": train_launches, "midas_train_step": midas_train_launches}
+                "train": train_launches, "midas_train_step": midas_train_launches, **export_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1875,7 +2131,8 @@ def main():
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
               ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris", "server", "fused_server", "multistream",
-               "train"), grad=grad_rows["multi_head_attention"],
+               "train", "export_dpt_large", "export_dpt_large_b4", "export_fused"),
+              grad=grad_rows["multi_head_attention"],
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],

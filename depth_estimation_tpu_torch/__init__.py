@@ -13,18 +13,34 @@ the hub's ``transforms``, the fused iris/pose + depth path (``FaceDet``,
 ``PersonDetector``, ``runtime.stream.FusedVidStream``,
 ``python -m depth_estimation_tpu_torch.midas_mediapipe``, fused or staged)
 the detection-only distance pipeline (``FaceDetector``,
-``python -m depth_estimation_tpu_torch.depth_by_detection``) and the serving
+``python -m depth_estimation_tpu_torch.depth_by_detection``), the serving
 surface (``MultiStream``, ``DepthServer``, ``FusedDepthServer``,
-``BucketedDepthServer``, ``python -m depth_estimation_tpu_torch.tools.serve``).
+``BucketedDepthServer``, ``python -m depth_estimation_tpu_torch.tools.serve``),
+training and evaluation (``train/``, ``utils/checkpoint.py``,
+``python -m depth_estimation_tpu_torch.tools.evaluate``) and export
+(``utils/export.py``: the frame programs on ``torch.export``, weights kept
+out of the artifact, ``python -m depth_estimation_tpu_torch.tools.export_program``).
+
+The kernels are ``torch.library`` operators (``torch.ops.depth_tpu_torch``).
+The names below are imported at first use, so that a process that imports
+only ``depth_estimation_tpu_torch.ops.kernels`` (to load an exported program)
+does not import the models.
 """
 
-from depth_estimation_tpu_torch.detect.face_detector import FaceDetector
-from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
-from depth_estimation_tpu_torch.estimator import DepthEstimator
-from depth_estimation_tpu_torch.geometry.face import FaceDet
-from depth_estimation_tpu_torch.runtime.multistream import MultiStream
-from depth_estimation_tpu_torch.runtime.server import BucketedDepthServer, DepthServer, FusedDepthServer
-from depth_estimation_tpu_torch.runtime.stream import VidStream
+from importlib import import_module
 
-__all__ = ["BucketedDepthServer", "DepthEstimator", "DepthServer", "FaceDet", "FaceDetector", "FusedDepthServer",
-           "MultiStream", "PersonDetector", "VidStream"]
+from depth_estimation_tpu_torch.version import __version__
+
+_EXPORTS = {
+    "BucketedDepthServer": "runtime.server", "DepthEstimator": "estimator", "DepthServer": "runtime.server",
+    "FaceDet": "geometry.face", "FaceDetector": "detect.face_detector", "FusedDepthServer": "runtime.server",
+    "MultiStream": "runtime.multistream", "PersonDetector": "detect.person_detector", "VidStream": "runtime.stream",
+}
+
+__all__ = ["__version__", *sorted(_EXPORTS)]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

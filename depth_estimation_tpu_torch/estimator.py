@@ -26,6 +26,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32, resolve_device
 from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d, PReLU
@@ -117,6 +118,7 @@ class DepthEstimator:
             {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
              for k, v in params.items() if not _unread_hub_key(k)})
         self.model = model.to(self.dtype).eval()
+        self._fn_cache: Dict[Tuple, object] = {}
 
     # -- frame program --------------------------------------------------------
 
@@ -140,15 +142,53 @@ class DepthEstimator:
         with torch.inference_mode(), self._numerics():
             return self.depth_branch(imgs, output)
 
-    def depth_branch(self, imgs: torch.Tensor, output: str = "f32") -> torch.Tensor:
+    def depth_branch(self, imgs: torch.Tensor, output: str = "f32", bgr: bool = True,
+                     params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """``_run``'s body, for a caller that has entered inference mode and
-        ``_numerics()`` itself (the fused frame program): K2, the network, K3."""
+        ``_numerics()`` itself (the fused frame program): K2, the network, K3.
+        ``bgr=False`` takes RGB frames. ``params``: a state dict that the
+        network runs on in place of its own (``torch.func.functional_call``)."""
         in_hw = (int(imgs.shape[1]), int(imgs.shape[2]))
         cfg = self.preprocess_cfg
         net_hw = compute_resize_shape(*in_hw, cfg)
-        x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=True)
-        pred = self.model(x.to(self.dtype)).float()  # (B, h, w)
+        x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=bgr).to(self.dtype)
+        pred = (self.model(x) if params is None else functional_call(self.model, params, (x,))).float()  # (B, h, w)
         return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
+
+    def frame_fn(self, in_hw: Tuple[int, int], bgr: bool = True, output: str = "f32"):
+        """The frame program at source size ``in_hw`` with the weights as an
+        argument (JAX ``frame_fn``): fn(params, img_u8 (H, W, 3)) → (H, W)
+        float32 depth, or with output='u8' its wrap-around uint8 cast.
+        ``params`` is a state dict of the model's keys (``self.params``); the
+        frame is a tensor on the estimator's device or a numpy array. Cached
+        per (in_hw, bgr, output)."""
+        return self._frame_fn(in_hw, bgr, output, batched=False)
+
+    def batched_frame_fn(self, in_hw: Tuple[int, int], bgr: bool = True, output: str = "f32"):
+        """``frame_fn`` for (B, H, W, 3) batches: fn(params, imgs) → (B, H, W),
+        one K2 launch, one network pass and one K3 launch a batch."""
+        return self._frame_fn(in_hw, bgr, output, batched=True)
+
+    def _frame_fn(self, in_hw, bgr, output, batched):
+        key = (int(in_hw[0]), int(in_hw[1]), bool(bgr), output, batched)
+        if key not in self._fn_cache:
+            hw = key[:2]
+
+            def frame(params, img):
+                imgs = self._to_device(img if batched else img[None])
+                if tuple(imgs.shape[1:3]) != hw:
+                    raise ValueError(f"frames of {tuple(imgs.shape[1:3])} given to the {hw} program")
+                with torch.inference_mode(), self._numerics():
+                    out = self.depth_branch(imgs, output, bool(bgr), params)
+                return out if batched else out[0]
+
+            self._fn_cache[key] = frame
+        return self._fn_cache[key]
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict, the weights that ``frame_fn``'s programs take."""
+        return self.model.state_dict()
 
     # -- public API -----------------------------------------------------------
 

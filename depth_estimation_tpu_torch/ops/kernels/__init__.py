@@ -1,5 +1,12 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
+Each kernel is a ``torch.library`` custom operator under the namespace
+``depth_tpu_torch`` (``attention``, ``preprocess``, ``resize_planes``,
+``grouped_conv3x3``): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and a fake implementation lets
+``torch.export`` and ``torch.compile`` trace it. Importing this package
+registers them, which is all a loaded ``utils/export.py`` program needs.
+
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``launches``, so a run can show that the main path went through it.
 """

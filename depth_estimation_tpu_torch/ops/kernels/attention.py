@@ -29,17 +29,19 @@ JAX package's ``_attention_xla``: f32 logits, softmax, probabilities cast to
 the input type, f32 product with V, output in the input type. A float64
 input is computed in float64 throughout (a gradient reference, never a
 kernel input).
-``multi_head_attention`` takes it for CPU tensors and launches the kernel
-for CUDA tensors.
+``multi_head_attention`` calls the operator ``depth_tpu_torch::attention``
+(``torch.ops.depth_tpu_torch.attention``): its CPU implementation is
+``attention_plain``, its CUDA implementation launches the kernel, and its
+fake implementation gives the output's shape and dtype, so that
+``torch.export`` and ``torch.compile`` trace through it.
 
 Gradient. The TPU kernel has none: the JAX package trains through
-``_attention_xla``, so XLA differentiates plain products. On the card the
-launch is the forward of ``_Attention``, a ``torch.autograd.Function``, and
-its backward is ``attention_backward_plain``: P = softmax(QKᵀ/√D) recomputed
-from the saved q, k and v in f32 (P is 16·577²·4 B ≈ 21 MB an image a block
-at 384², cheap to recompute), then dV = PᵀdO, dS = P⊙(dP − rowsum(dO⊙O))
-with dP = dO·Vᵀ, dQ = dS·K/√D and dK = dSᵀ·Q/√D, as ``torch.matmul``s with
-TF32 off.
+``_attention_xla``, so XLA differentiates plain products. The operator's
+registered backward, on both devices, is ``attention_backward_plain``: P =
+softmax(QKᵀ/√D) recomputed from the saved q, k and v in f32 (P is
+16·577²·4 B ≈ 21 MB an image a block at 384², cheap to recompute), then dV =
+PᵀdO, dS = P⊙(dP − rowsum(dO⊙O)) with dP = dO·Vᵀ, dQ = dS·K/√D and dK =
+dSᵀ·Q/√D, as ``torch.matmul``s with TF32 off.
 """
 
 from __future__ import annotations
@@ -118,32 +120,43 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 
     CPU tensors take ``attention_plain``. CUDA tensors launch the kernel,
     which reads q, k and v through their strides (the last axis must be
-    contiguous, and the alignment above holds) and needs D = 64; the output
+    contiguous, and the alignment above holds) and needs D = 64. The output
     carries the gradient of ``attention_backward_plain``."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
-    return _Attention.apply(q, k, v)
+    return attention_op(q, k, v)
 
 
-class _Attention(torch.autograd.Function):
-    """The kernel's launch as the forward, ``attention_backward_plain`` as the backward."""
+@torch.library.custom_op("depth_tpu_torch::attention", mutates_args=(), device_types="cuda")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K1 as an operator; this body is its CUDA implementation."""
+    return _launch(q, k, v)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        o = _launch(q, k, v)
-        ctx.save_for_backward(q, k, v, o)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        with full_f32():
-            return attention_backward_plain(*ctx.saved_tensors, do)
+@attention_op.register_kernel("cpu")
+def _attention_cpu(q, k, v):
+    return attention_plain(q, k, v).contiguous()
+
+
+@attention_op.register_fake
+def _attention_fake(q, k, v):
+    return q.new_empty(q.shape)
+
+
+def _attention_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output)
+
+
+def _attention_backward(ctx, do):
+    with full_f32():
+        return attention_backward_plain(*ctx.saved_tensors, do)
+
+
+attention_op.register_autograd(_attention_backward, setup_context=_attention_setup)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors, counted."""
+    """One launch of the kernel on CUDA tensors, counted: the operator's CUDA implementation."""
     _check(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)

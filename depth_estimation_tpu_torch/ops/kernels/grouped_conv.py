@@ -9,21 +9,25 @@ ResNeXt-101 32x8d bottleneck of MiDaS v2.1. The kernel is
 (``F.unfold``) and one matmul with the group as a batch dimension, the form
 of the JAX package's ``_batched_matmul_grouped_conv``, in f32 with the
 output cast to the input type (a float64 input, a gradient reference, is
-computed in float64). ``grouped_conv3x3`` takes it for CPU tensors
-and launches the kernel for CUDA tensors.
+computed in float64). ``grouped_conv3x3`` calls the operator
+``depth_tpu_torch::grouped_conv3x3``, whose CPU implementation is the plain
+version, whose CUDA implementation launches the kernel, and whose fake
+implementation gives the output's shape and dtype, so that ``torch.export``
+and ``torch.compile`` trace through it.
 
 Layouts: x (B, C, H, W); weight (C, C/G, 3, 3), as ``nn.Conv2d(groups=G)``
 stores it: output channel o reads the input channels of its group
 ``o // (C/G)``.
 
 Gradient. The TPU kernel has none: the JAX package trains through XLA's
-grouped convolution. On the card the launch is the forward of
-``_GroupedConv3x3``, a ``torch.autograd.Function``. Its dX is itself a
-grouped 3×3 stride-1 convolution of dY, with each group's weight transposed
-(in ↔ out) and flipped in both taps (``transposed_weight``); C/G is the same
-in and out, so dX is one more K4 launch. dW is ``weight_grad_plain``, the
-plain version's im2col product transposed (dY·patchesᵀ a group, a
-``torch.matmul`` with TF32 off), as XLA computes it outside the TPU kernel.
+grouped convolution. The operator's registered backward, on both devices:
+dX is itself a grouped 3×3 stride-1 convolution of dY, with each group's
+weight transposed (in ↔ out) and flipped in both taps
+(``transposed_weight``); C/G is the same in and out, so dX is one more call
+of the operator (on the card, one more K4 launch). dW is
+``weight_grad_plain``, the plain version's im2col product transposed
+(dY·patchesᵀ a group, a ``torch.matmul`` with TF32 off), as XLA computes it
+outside the TPU kernel.
 On the H100, cuDNN's grouped ``conv2d_weight`` put one MiDaS layer-4
 element 5e-4 (relative) off this product, and took 0.80 ms there (PERF.md
 §6).
@@ -101,39 +105,52 @@ def grouped_conv3x3(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch
     """``grouped_conv3x3_plain`` for a CPU tensor; one K4 launch for a CUDA
     tensor. The kernel takes contiguous f32 or bf16 x and weight of one
     dtype, on one device, and writes a new contiguous output, which carries
-    the gradient of ``_GroupedConv3x3``."""
-    if x.device.type == "cpu":
-        return grouped_conv3x3_plain(x, weight, groups)
-    if x.device.type != "cuda":
+    the gradient of the operator's registered backward."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no grouped conv kernel for device {x.device}")
-    return _GroupedConv3x3.apply(x, weight, groups)
+    return grouped_conv3x3_op(x, weight, int(groups))
 
 
-class _GroupedConv3x3(torch.autograd.Function):
-    """K4's launch as the forward; dX a K4 launch on ``transposed_weight``,
-    dW ``weight_grad_plain``."""
+@torch.library.custom_op("depth_tpu_torch::grouped_conv3x3", mutates_args=(), device_types="cuda")
+def grouped_conv3x3_op(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """K4 as an operator; this body is its CUDA implementation."""
+    return _launch(x, weight, groups)
 
-    @staticmethod
-    def forward(ctx, x, weight, groups):
-        ctx.groups = groups
-        ctx.save_for_backward(x, weight)
-        return _launch(x, weight, groups)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, weight = ctx.saved_tensors
-        dy = dy.contiguous()
-        dx = dw = None
-        with full_f32():
-            if ctx.needs_input_grad[0]:
-                dx = _launch(dy, transposed_weight(weight, ctx.groups), ctx.groups)
-            if ctx.needs_input_grad[1]:
-                dw = weight_grad_plain(x, dy, ctx.groups)
-        return dx, dw, None
+@grouped_conv3x3_op.register_kernel("cpu")
+def _grouped_conv3x3_cpu(x, weight, groups):
+    return grouped_conv3x3_plain(x, weight, groups).contiguous()
+
+
+@grouped_conv3x3_op.register_fake
+def _grouped_conv3x3_fake(x, weight, groups):
+    return x.new_empty(x.shape)
+
+
+def _grouped_conv3x3_setup(ctx, inputs, output):
+    x, weight, ctx.groups = inputs
+    ctx.save_for_backward(x, weight)
+
+
+def _grouped_conv3x3_backward(ctx, dy):
+    """dX: the operator on ``transposed_weight`` (a K4 launch on the card);
+    dW: ``weight_grad_plain``."""
+    x, weight = ctx.saved_tensors
+    dy = dy.contiguous()
+    dx = dw = None
+    with full_f32():
+        if ctx.needs_input_grad[0]:
+            dx = grouped_conv3x3_op(dy, transposed_weight(weight, ctx.groups), ctx.groups)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad_plain(x, dy, ctx.groups)
+    return dx, dw, None
+
+
+grouped_conv3x3_op.register_autograd(_grouped_conv3x3_backward, setup_context=_grouped_conv3x3_setup)
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, groups: int) -> torch.Tensor:
-    """One K4 launch on CUDA tensors, counted."""
+    """One K4 launch on CUDA tensors, counted: the operator's CUDA implementation."""
     _check_shapes(x, weight, groups)
     if x.dtype not in _DTYPES or weight.dtype != x.dtype:
         raise TypeError(f"x and weight must both be float32 or bfloat16; got {x.dtype}, {weight.dtype}")

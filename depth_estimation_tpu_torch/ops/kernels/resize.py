@@ -21,31 +21,36 @@ the kernel takes it as it is.
 
 ``preprocess_plain`` and ``resize_planes_plain`` are the plain PyTorch
 versions (the dense matmul form of the JAX package). ``fused_preprocess``
-and ``resize_planes`` take them for CPU tensors and launch the kernels for
-CUDA tensors. ``resize_planes(..., output="u8")`` fuses the reference's
-wrap-around uint8 cast (``ops.postprocess.wraparound_u8``) into K3.
+and ``resize_planes`` call the operators ``depth_tpu_torch::preprocess`` and
+``depth_tpu_torch::resize_planes``, whose CPU implementations are the plain
+versions, whose CUDA implementations launch the kernels, and whose fake
+implementations give the output's shape and dtype, so that ``torch.export``
+and ``torch.compile`` trace through them. ``resize_planes(...,
+output="u8")`` fuses the reference's wrap-around uint8 cast
+(``ops.postprocess.wraparound_u8``) into K3.
 
-Gradient. K2 takes u8 frames and has none. K3's f32 route is the forward of
-``_ResizePlanes``, a ``torch.autograd.Function`` whose backward is
-``resize_planes_backward_plain``: the transpose of the plain version's two
-products, dD = Whᵀ·G·Ww with the dense ``interp_matrix``es, as
-``torch.matmul``s with TF32 off (the JAX package trains through
-``resize2d``'s products, which XLA differentiates).
+Gradient. K2 takes u8 frames and has none. K3's f32 route has the
+registered backward ``resize_planes_backward_plain``, on both devices: the
+transpose of the plain version's two products, dD = Whᵀ·G·Ww with the dense
+``interp_matrix``es, as ``torch.matmul``s with TF32 off (the JAX package
+trains through ``resize2d``'s products, which XLA differentiates). The u8
+route takes no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from depth_estimation_tpu_torch.device import full_f32
+from depth_estimation_tpu_torch.device import at_least_f32, full_f32
 from depth_estimation_tpu_torch.ops.kernels import build
 from depth_estimation_tpu_torch.ops.postprocess import wraparound_u8
-from depth_estimation_tpu_torch.ops.resize import interp_matrix, resize2d
+from depth_estimation_tpu_torch.ops.resize import _matrix, interp_matrix, resize2d
 
 TAPS = 4
 THREADS = 256  # kThreads in csrc/resize.cu
@@ -202,15 +207,23 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
     """``preprocess_plain`` for a CPU tensor; one K2 launch for a CUDA tensor.
     ``method="linear"`` is the detectors' input (JAX ``pallas_preprocess(...,
     method="linear")``): 2 taps a row, padded to 4 with zero weights."""
-    if imgs.device.type == "cpu":
-        return preprocess_plain(imgs, out_hw, mean, std, bgr_to_rgb, method)
-    if method not in ("cubic", "linear"):
+    if imgs.device.type != "cpu" and method not in ("cubic", "linear"):
         raise ValueError(f"preprocess kernel takes cubic or linear, got {method!r}")
+    if imgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no preprocess kernel for device {imgs.device}")
+    return preprocess_op(imgs, [int(n) for n in out_hw], [float(m) for m in mean], [float(s) for s in std],
+                         bool(bgr_to_rgb), method)
+
+
+@torch.library.custom_op("depth_tpu_torch::preprocess", mutates_args=(), device_types="cuda")
+def preprocess_op(imgs: torch.Tensor, out_hw: List[int], mean: List[float], std: List[float], bgr_to_rgb: bool,
+                  method: str) -> torch.Tensor:
+    """K2 as an operator; this body is its CUDA implementation: one launch, counted."""
     _check_cuda(imgs, torch.uint8, 4, "preprocess")
     b, h, w, c = imgs.shape
     if c != 3:
         raise ValueError(f"preprocess kernel takes 3-channel frames, got {c}")
-    h_out, w_out = int(out_hw[0]), int(out_hw[1])
+    h_out, w_out = out_hw
     out = torch.empty((b, 3, h_out, w_out), dtype=torch.float32, device=imgs.device)
     scale, bias = normalize_affine(mean, std)
     with torch.cuda.device(imgs.device):
@@ -221,6 +234,16 @@ def fused_preprocess(imgs: torch.Tensor, out_hw: Tuple[int, int], mean: Sequence
     build.check(err, "preprocess kernel launch")
     build.count_launch(fused_preprocess)
     return out
+
+
+@preprocess_op.register_kernel("cpu")
+def _preprocess_cpu(imgs, out_hw, mean, std, bgr_to_rgb, method):
+    return preprocess_plain(imgs, out_hw, mean, std, bgr_to_rgb, method).contiguous()
+
+
+@preprocess_op.register_fake
+def _preprocess_fake(imgs, out_hw, mean, std, bgr_to_rgb, method):
+    return imgs.new_empty((imgs.shape[0], 3, *out_hw), dtype=torch.float32)
 
 
 fused_preprocess.launches = 0
@@ -242,11 +265,14 @@ def resize_planes_backward_plain(g: torch.Tensor, in_hw: Tuple[int, int], method
                                  align_corners: bool = False) -> torch.Tensor:
     """The gradient of ``resize_planes_plain``'s f32 route with respect to
     its (B, H, W) input, for the output gradient ``g`` (B, H_out, W_out):
-    Whᵀ·g·Ww."""
+    Whᵀ·g·Ww, in f32 (float64 for a float64 ``g``)."""
     h_out, w_out = g.shape[-2:]
-    wh, ww = (_device_matrix(int(n_in), int(n_out), method, bool(align_corners), g.device)
+    g = at_least_f32(g)
+    # a traced backward (fake tensors) makes its matrices anew; an eager one takes the cached device copies
+    matrix = _matrix if is_fake(g) else _device_matrix
+    wh, ww = (matrix(int(n_in), int(n_out), method, bool(align_corners), g.device).to(g.dtype)
               for n_in, n_out in zip(in_hw, (h_out, w_out)))
-    return torch.matmul(wh.t(), torch.matmul(g.float(), ww))
+    return torch.matmul(wh.t(), torch.matmul(g, ww))
 
 
 @functools.lru_cache(maxsize=64)
@@ -260,38 +286,22 @@ def resize_planes(x: torch.Tensor, out_hw: Tuple[int, int], method: str = "cubic
     planes of a CUDA tensor. The u8 route stores ``(int)trunc(v) & 255``,
     ``wraparound_u8``'s function for |trunc(v)| < 2**24; the f32 route
     carries the gradient of ``resize_planes_backward_plain``."""
-    if x.device.type == "cpu":
-        return resize_planes_plain(x, out_hw, method, align_corners, output)
-    if method not in ("cubic", "linear"):
+    if x.device.type != "cpu" and method not in ("cubic", "linear"):
         raise ValueError(f"resize kernel takes cubic or linear, got {method!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no resize kernel for device {x.device}")
     if output not in _OUTPUTS:
         raise ValueError(f"output must be one of {sorted(_OUTPUTS)}, got {output!r}")
     planes = x if x.dim() == 3 else x[None]
-    out_hw = (int(out_hw[0]), int(out_hw[1]))
-    if output == "u8":
-        out = _launch(planes, out_hw, method, align_corners, output)
-    else:
-        out = _ResizePlanes.apply(planes, out_hw, method, align_corners)
+    out = resize_planes_op(planes, [int(out_hw[0]), int(out_hw[1])], method, bool(align_corners), output)
     return out if x.dim() == 3 else out[0]
 
 
-class _ResizePlanes(torch.autograd.Function):
-    """K3's f32 launch as the forward, ``resize_planes_backward_plain`` as the backward."""
-
-    @staticmethod
-    def forward(ctx, planes, out_hw, method, align_corners):
-        ctx.in_hw, ctx.method, ctx.align_corners = tuple(planes.shape[1:]), method, align_corners
-        return _launch(planes, out_hw, method, align_corners, "f32")
-
-    @staticmethod
-    def backward(ctx, g):
-        with full_f32():
-            return resize_planes_backward_plain(g, ctx.in_hw, ctx.method, ctx.align_corners), None, None, None
-
-
-def _launch(planes: torch.Tensor, out_hw: Tuple[int, int], method: str, align_corners: bool,
-            output: str) -> torch.Tensor:
-    """One K3 launch on a (B, H, W) CUDA tensor, counted."""
+@torch.library.custom_op("depth_tpu_torch::resize_planes", mutates_args=(), device_types="cuda")
+def resize_planes_op(planes: torch.Tensor, out_hw: List[int], method: str, align_corners: bool,
+                     output: str) -> torch.Tensor:
+    """K3 on (B, H, W) planes as an operator; this body is its CUDA
+    implementation: one launch, counted."""
     _check_cuda(planes, torch.float32, 3, "resize")
     b, h, w = planes.shape
     h_out, w_out = out_hw
@@ -305,6 +315,33 @@ def _launch(planes: torch.Tensor, out_hw: Tuple[int, int], method: str, align_co
     build.check(err, "resize kernel launch")
     build.count_launch(resize_planes)
     return out
+
+
+@resize_planes_op.register_kernel("cpu")
+def _resize_planes_cpu(planes, out_hw, method, align_corners, output):
+    out = resize_planes_plain(planes, out_hw, method, align_corners, output)
+    if output == "f32" and tuple(planes.shape[1:]) == tuple(out_hw):
+        return out.clone(memory_format=torch.contiguous_format)  # resize2d returned its input
+    return out.contiguous()
+
+
+@resize_planes_op.register_fake
+def _resize_planes_fake(planes, out_hw, method, align_corners, output):
+    dtype = torch.uint8 if output == "u8" else planes.dtype
+    return planes.new_empty((planes.shape[0], *out_hw), dtype=dtype)
+
+
+def _resize_planes_setup(ctx, inputs, output):
+    planes, _out_hw, ctx.method, ctx.align_corners, _output = inputs
+    ctx.in_hw = tuple(planes.shape[1:])
+
+
+def _resize_planes_backward(ctx, g):
+    with full_f32():
+        return resize_planes_backward_plain(g, ctx.in_hw, ctx.method, ctx.align_corners), None, None, None, None
+
+
+resize_planes_op.register_autograd(_resize_planes_backward, setup_context=_resize_planes_setup)
 
 
 resize_planes.launches = 0

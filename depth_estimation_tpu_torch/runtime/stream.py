@@ -490,9 +490,22 @@ class FusedVidStream:
         except ImportError:
             pass
 
+    def detect_points(self, img):
+        """The reference's (dead) helper (midas_mediapipe.py:136-139), kept
+        for API parity: iris first, body on a miss."""
+        self.detector.findIris(img)
+        if self.face.mesh is None:
+            self.detector.findBody(img)
+
     def write_messages(self, messages, img):
         for idx, m in enumerate(messages):
             self._put_text(img, m, (50, 50 + idx * 50), (0, 255, 0))
+
+    def to_video_frame(self, img):
+        """uint8 cast, ``*= 5`` and ``+= 10`` with wrap-around, gray → 3
+        channels (midas_mediapipe.py:141-150) on the host. The fused program
+        computes it on the device (``vis_u8``); this serves API parity."""
+        return to_video_frame(img)
 
     def side_by_side(self, img1, img2):
         return side_by_side(img1, img2, self.w, self.h)

@@ -567,3 +567,125 @@ def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
     for k, g64 in ref.items():
         err = float((gg[k].double() - g64).abs().max())
         assert err <= 2.5e-2 * float(g64.abs().max()), (k, err / float(g64.abs().max()))
+
+
+# -- the kernels as operators, and an exported program on the card -----------------------------------
+
+
+def _op_cases(gen, cuda):
+    """(operator, args, plain version of the same args) for each kernel and route."""
+    qkv = torch.randn((1, 77, 3, 2, 64), generator=gen, device=cuda).permute(2, 0, 3, 1, 4)
+    imgs = torch.randint(0, 256, (2, 40, 56, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    planes = torch.rand((2, 24, 32), generator=gen, device=cuda)
+    depth = 600 * planes - 100  # the u8 route's wrap-around both ways
+    x, k = _grouped_inputs(gen, 1, 64, 9, 11, 8, torch.float32, cuda)
+    pre = (imgs, [24, 32], list(DPT_PREPROCESS.mean), list(DPT_PREPROCESS.std), True, "cubic")
+    return {
+        "attention": (torch.ops.depth_tpu_torch.attention, (qkv[0], qkv[1], qkv[2]), tatt.attention_plain),
+        "preprocess": (torch.ops.depth_tpu_torch.preprocess, pre, trsz.preprocess_plain),
+        "resize_f32": (torch.ops.depth_tpu_torch.resize_planes, (planes, [40, 56], "cubic", False, "f32"),
+                       trsz.resize_planes_plain),
+        "resize_u8": (torch.ops.depth_tpu_torch.resize_planes, (depth, [40, 56], "cubic", False, "u8"),
+                      trsz.resize_planes_plain),
+        "grouped_conv3x3": (torch.ops.depth_tpu_torch.grouped_conv3x3, (x, k, 8), tgc.grouped_conv3x3_plain),
+    }
+
+
+OP_CASES = ("attention", "preprocess", "resize_f32", "resize_u8", "grouped_conv3x3")
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_operator_cuda_implementation_matches_plain(cuda, gen, case):
+    """Each operator on CUDA tensors launches its kernel once (counted) and
+    holds its plain version on the same inputs; u8 bytes may part only where
+    the f32 map lies within 1e-3 of an integer."""
+    from depth_estimation_tpu_torch.ops import kernels
+
+    op, args, plain = _op_cases(gen, cuda)[case]
+    kernels.reset_launch_counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert sum(kernels.launch_counts().values()) == 1
+    want = plain(*args)
+    assert got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous()
+    if case == "resize_u8":
+        f32 = trsz.resize_planes_plain(*args[:4])
+        near = (f32 - f32.round()).abs() < 1e-3
+        assert not ((got != want) & ~near).any()
+    else:  # the kernels' tolerances of the tests above
+        atol, rtol = {"attention": (2e-5, 1e-4), "grouped_conv3x3": (1e-4, 1e-4)}.get(case, (3e-5, 0))
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_operator_opcheck_on_cuda(cuda, gen, case):
+    """``torch.library.opcheck`` on CUDA tensors: schema, autograd
+    registration, the fake implementation against the CUDA one, AOT tracing."""
+    op, args, _ = _op_cases(gen, cuda)[case]
+    if case in ("attention", "resize_f32", "grouped_conv3x3"):  # the routes with a gradient
+        args = tuple(a.detach().requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                     for a in args)
+    result = torch.library.opcheck(op.default, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_exported_tiny_dpt_round_trip_on_the_card(cuda, tmp_path):
+    """A tiny DPT with 64-wide heads (K1's width) exported on the card, saved,
+    loaded from disk: within max-scaled 1e-6 of the live program, K1 once a
+    block, K2 1, K3 1 inside one loaded call."""
+    import warnings
+
+    from depth_estimation_tpu_torch import registry
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.models.dpt import DPT, DPTConfig
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.utils.export import export_frame_program, load_frame_program
+
+    cfg = DPTConfig(embed_dim=128, depth=4, num_heads=2, hooks=(0, 1, 2, 3), reassemble_channels=(16, 32, 64, 64),
+                    features=32, img_size=64)
+    registry.register(registry.ModelEntry("DPT_Tiny_cuda_export_test", lambda: DPT(cfg), DPT_PREPROCESS))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        est = DepthEstimator("DPT_Tiny_cuda_export_test", verbose=False)
+    path = tmp_path / "tiny.pt2"
+    path.write_bytes(export_frame_program(est, (120, 160)))
+    fn = load_frame_program(path)
+    img = np.random.default_rng(0).integers(0, 256, (120, 160, 3), np.uint8)
+    kernels.reset_launch_counts()
+    got = fn(est.params, img)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"multi_head_attention": 4, "fused_preprocess": 1, "resize_planes": 1,
+                                       "grouped_conv3x3": 0}
+    want = est.predict(img)
+    assert got.device.type == "cuda" and np.isfinite(want).all()
+    assert float(np.abs(got.cpu().numpy() - want).max()) <= 1e-6 * float(np.abs(want).max())
+    with pytest.raises(ValueError, match="exported for cuda"):
+        fn({k: v.cpu() for k, v in est.params.items()}, img)
+
+
+def _ssi_loss_numpy(pred, gt, trim=0.2):
+    """``ssi_loss`` without a mask in float64 numpy, the cut by ``np.quantile``."""
+    pred, gt = pred.astype(np.float64), gt.astype(np.float64)
+    n = pred[0].size
+    sp, sg = pred.sum(axis=(1, 2)), gt.sum(axis=(1, 2))
+    spp, spg = (pred * pred).sum(axis=(1, 2)), (pred * gt).sum(axis=(1, 2))
+    det = spp * n - sp * sp
+    s, t = (spg * n - sp * sg) / det, (spp * sg - sp * spg) / det
+    err = np.abs(pred * s[:, None, None] + t[:, None, None] - gt).reshape(len(pred), -1)
+    cut = np.quantile(err, 1.0 - trim, axis=1, keepdims=True)
+    return float((np.where(err <= cut, err, 0.0).sum(axis=1) / (n * (1.0 - trim))).mean())
+
+
+@pytest.mark.parametrize("shape", [(1026, 128, 128), (1, 4200, 4096)], ids=["batch", "one_row"])
+def test_ssi_loss_on_more_than_2_24_values_on_the_card(cuda, shape):
+    """``ssi_loss`` on the card over more than 2^24 values, in a batch of
+    maps and in one map, against numpy's quantile in float64: the
+    ``torch.quantile`` it once used refuses such inputs."""
+    from depth_estimation_tpu_torch.train.losses import ssi_loss
+
+    rng = np.random.default_rng(5)
+    pred = rng.random(shape, dtype=np.float32)
+    gt = (2.0 * pred + 0.5 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    assert pred.size > 2 ** 24
+    got = float(ssi_loss(torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)))
+    assert got == pytest.approx(_ssi_loss_numpy(pred, gt), rel=1e-4)

@@ -237,29 +237,28 @@ def test_plain_versions_compute_float64_in_float64(case):
 
 @pytest.mark.parametrize("kernel", ["attention", "resize", "grouped_conv"])
 def test_autograd_functions_route_gradients(monkeypatch, kernel):
-    """Each wrapper's autograd Function, its launch stood in by the plain
-    version (the CUDA kernel cannot run here): the gradients of autograd of
-    the plain version reach every input, and K4's dX goes through the launch."""
+    """Each kernel operator's registered autograd, on CPU tensors, where the
+    operator's implementation is the plain version (the CUDA kernel cannot
+    run here): the gradients of autograd of the plain version reach every
+    input, and K4's dX goes through the operator again."""
     g = torch.Generator().manual_seed(3)
-    launches = []
     if kernel == "attention":
-        fn, plain, mod = tatt._Attention.apply, tatt.attention_plain, tatt
+        fn, plain, mod, name = tatt.multi_head_attention, tatt.attention_plain, tatt, "attention_plain"
         inputs = [torch.randn((1, 2, 17, 64), generator=g) for _ in range(3)]
-        stand_in = plain
     elif kernel == "resize":
-        fn, mod = (lambda x: trsz._ResizePlanes.apply(x, (20, 28), "cubic", False)), trsz
+        fn, mod, name = (lambda x: trsz.resize_planes(x, (20, 28))), trsz, "resize_planes_plain"
         plain = lambda x: trsz.resize_planes_plain(x, (20, 28))  # noqa: E731
         inputs = [torch.randn((2, 12, 16), generator=g)]
-        stand_in = lambda x, out_hw, method, ac, output: trsz.resize_planes_plain(x, out_hw, method, ac)  # noqa: E731
     else:
-        fn, mod = (lambda x, w: tgc._GroupedConv3x3.apply(x, w, 4)), tgc
+        fn, mod, name = (lambda x, w: tgc.grouped_conv3x3(x, w, 4)), tgc, "grouped_conv3x3_plain"
         plain = lambda x, w: tgc.grouped_conv3x3_plain(x, w, 4)  # noqa: E731
         inputs = [torch.randn((2, 16, 6, 5), generator=g), torch.randn((16, 4, 3, 3), generator=g)]
-        stand_in = tgc.grouped_conv3x3_plain
-    monkeypatch.setattr(mod, "_launch", lambda *a: launches.append(a[0].shape) or stand_in(*a))
     out = plain(*inputs)
     up = torch.randn(out.shape, generator=g)
     want = _autograd(plain, *inputs, upstream=up)
+    launches = []
+    stand_in = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a: launches.append(a[0].shape) or stand_in(*a))
     got = _autograd(fn, *inputs, upstream=up)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
