@@ -27,8 +27,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tiling printed, at batch 1, and checked in both at batch 4, the microbatch;
    K2 (preprocess) and K3 (resize) are checked and timed at both families'
    shapes (480×640 u8 → 384×512 or 192×256, and back to 480×640), and K2's
-   linear route at the detectors' inputs (→ 128×128, mean = std = 0.5, and
-   → 256×256, mean 0, std 1; atol 1e-5), each with
+   linear route at the detectors' inputs (→ 128×128 and → 224×224, mean =
+   std = 0.5, and → 256×256, mean 0, std 1; atol 1e-5), each with
    its tiling printed, at batch 1, and checked at batch 4 (K2 cubic and K3
    on DPT_Large's shapes also at the servers' batch of 8); K3 also on its u8
    route (the stream's wrap-around cast fused in) against ``wraparound_u8``
@@ -93,7 +93,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    tier 2 with ``--with-depth MiDaS_small`` on a hit (K2 3, K3 1; the ROI
    medians on the card equal to the CPU's on the same map, the map within
    1e-3 of the CPU plain path's); one program's profile. Each prints its
-   seconds.
+   seconds. Then tflite — the ``.tflite`` route (``tools/tflite_rehearsal``)
+   under a temporary weight cache: the five MediaPipe files written at full
+   size from ``detector_weights(seed=0)`` (its BlazePoseDetector's heads
+   rescaled as BlazeFace's), imported by ``import_weights --tflite`` and
+   again (a cache hit), each import's seconds; ``PersonDetector()`` and
+   ``FaceDetector()`` on the card, given no params, hold the written state
+   dicts bitwise; on them the fused program (the DPT_Large of phase 4; K1
+   24, K2 3, K3 1) and the detection program (K2 2) are bitwise equal to
+   the same programs given the state dicts; the pose detector stage (K2
+   linear → 224², one launch) against the CPU plain path (scores 1e-4,
+   boxes 1e-4 by the top-two rule).
 14. server, server_hold, bucketed_server, fused_server, multistream,
    serve_cli — the serving surface on the DPT_Large of phase 4 (and
    ``detector_weights(seed=0)``): ``DepthServer`` (480×640, max_batch 8,
@@ -146,14 +156,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
-fused, detection, staged, server, fused_server, multistream, train (8
+fused, detection, tflite, staged, server, fused_server, multistream, train (8
 steps of ``fit``) and midas_train_step paths' and the loaded programs'
 (``export_*``), the backward under ``grad``; K2's
 and K3's for each network input under ``per_shape``, with K2's linear
 route's shapes),
 the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU it exits 1 before any
-phase. It imports nothing of JAX or of the JAX package.
+phase. It imports nothing of JAX or of the JAX package. Every phase runs on
+an empty temporary weight cache (``DEPTH_ESTIMATION_TPU_TORCH_CACHE``), so
+that weights cached on the machine cannot change the random-weight phases.
 """
 
 import json
@@ -527,16 +539,18 @@ def bf16_tail(est, est16, frame, bound, phase):
 
 FUSED_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
 DETECTOR_INPUTS = {"blazeface_128x128": ((128, 128), (0.5,) * 3, (0.5,) * 3),
-                   "blazepose_256x256": ((256, 256), (0.0,) * 3, (1.0,) * 3)}
+                   "blazepose_256x256": ((256, 256), (0.0,) * 3, (1.0,) * 3),
+                   "blazepose_detector_224x224": ((224, 224), (0.5,) * 3, (0.5,) * 3)}
 
 
 def detector_weights(seed=0):
-    """The state dicts of ``PersonDetector(seed=seed)``'s random nets, with
-    BlazeFace's heads rescaled so that random weights make a working
-    detector: classifiers ×0.05 (scores near 0.75 instead of saturated at 1,
-    so kept scores do not tie), box regressors ×0.5 with widths and heights
-    biased to 0.2 of the frame (boxes with an area, face crops of some 20-30%
-    of the frame instead of 1×1)."""
+    """The state dicts of ``PersonDetector(seed=seed)``'s random nets (built
+    on the empty weight cache that ``main`` sets), with the SSD heads of
+    BlazeFace and BlazePoseDetector rescaled so that random weights make
+    working detectors: classifiers ×0.05 (scores near 0.75 instead of
+    saturated at 1, so kept scores do not tie), box regressors ×0.5 with
+    widths and heights biased to 0.2 of the input (boxes with an area, face
+    crops of some 20-30% of the frame instead of 1×1)."""
     import warnings
 
     from depth_estimation_tpu_torch.config import CARD
@@ -547,13 +561,14 @@ def detector_weights(seed=0):
         warnings.simplefilter("ignore")
         det = PersonDetector(FaceDet(20, CARD), seed=seed, device="cpu")
     sd = {key: {k: v.clone() for k, v in net.state_dict().items()}
-          for key, net in (("blazeface", det._face_det), ("facemesh", det._mesh), ("blazepose", det._pose))}
-    face = sd["blazeface"]
-    for head in ("classifier_16", "classifier_8"):
-        face[f"{head}.weight"] *= 0.05
-    for head in ("regressor_16", "regressor_8"):
-        face[f"{head}.weight"] *= 0.5
-        face[f"{head}.bias"].view(-1, 16)[:, 2:4] += 0.2 * 128
+          for key, net in (("blazeface", det._face_det), ("facemesh", det._mesh),
+                           ("blazepose_detector", det._pose_det), ("blazepose", det._pose))}
+    for key, tags, values, size in (("blazeface", ("16", "8"), 16, 128),
+                                    ("blazepose_detector", ("28", "14", "7"), 12, 224)):
+        for tag in tags:
+            sd[key][f"classifier_{tag}.weight"] *= 0.05
+            sd[key][f"regressor_{tag}.weight"] *= 0.5
+            sd[key][f"regressor_{tag}.bias"].view(-1, values)[:, 2:4] += 0.2 * size
     return sd
 
 
@@ -943,6 +958,102 @@ def profile_detection(weights, frame, phase="detection_profile", n=8):
          cuda_launch_calls_per_program=launches, seconds=time.perf_counter() - t_phase,
          top=[{"kernel": k[:100], "ms_per_program": t / n / 1e3, "calls_per_program": c / n}
               for k, t, c in rows[:10]])
+
+
+POSE_DETECT_PER_CALL = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 0, "grouped_conv3x3": 0}
+
+
+def _launched(call, per_call, what):
+    """``call()`` with the launch counts zeroed just before and read just
+    after (a sync between); they must be ``per_call``. → (result, counts)."""
+    from depth_estimation_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == per_call, f"{what}: launch counts {counts} != {per_call}")
+    return out, counts
+
+
+def _bitwise(a, b, what):
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (a, b))
+    check(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True),
+          f"{what}: differs (max abs {np.abs(a.astype(np.float64) - b.astype(np.float64)).max()})")
+
+
+def run_tflite(est, weights, frame, phase="tflite"):
+    """The ``.tflite`` route on the card (``tools/tflite_rehearsal.rehearse``
+    under a temporary ``DEPTH_ESTIMATION_TPU_TORCH_CACHE``): the five
+    MediaPipe files written at full size from ``weights`` (3 extra branch
+    convs in the pose landmark file), imported by the CLI (its seconds),
+    imported again (a cache hit: the converters raise if called; its
+    seconds); ``PersonDetector()`` and ``FaceDetector()`` on the card, given
+    no params, hold the written state dicts bitwise. Then, on those
+    auto-loaded detectors, each against the same program on the state dicts
+    given: the fused iris/pose program on the DPT_Large of phase 4 (K1 24,
+    K2 3, K3 1) and the detection program (K2 2), outputs bitwise equal; the
+    pose stage ``_detect_fn((480, 640), "pose")`` (one K2 launch, linear to
+    224², mean = std = 0.5) against the CPU plain path on the same weights:
+    valid equal, scores within 1e-4 and, where the CPU's top two kept scores
+    lie 1e-4 apart or more, boxes within 1e-4. Returns the launches of the
+    three auto-loaded calls."""
+    from depth_estimation_tpu_torch.runtime.fused import FusedDetectionRunner, FusedFrameRunner
+    from depth_estimation_tpu_torch.tools.tflite_rehearsal import rehearse
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tflite_cache_") as cache:
+        report = rehearse(cache, weights=weights, device="cuda", log=lambda *_: None)
+    det, fd, given = report["person_detector"], report["face_detector"], report["weights"]
+    launches = {name: 0 for name in FUSED_PER_PROGRAM}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+
+    auto, direct = FusedFrameRunner(est, det), FusedFrameRunner(est, make_detector(given))
+    auto(frame), direct(frame)  # set-up (cuDNN plans at this shape)
+    got, counts = _launched(lambda: auto(frame), FUSED_PER_PROGRAM, f"{phase} fused")
+    add(counts)
+    want = direct(frame)
+    check(got.keys() == want.keys(), f"{phase}: fused keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        _bitwise(got[k], want[k], f"{phase} fused {k}")
+    fused_valid = bool(got["valid"][0])
+
+    auto_d, direct_d = FusedDetectionRunner(fd), FusedDetectionRunner(make_face_detector(given))
+    auto_d(frame), direct_d(frame)  # set-up
+    got_d, counts = _launched(lambda: auto_d(frame), DETECTION_PER_PROGRAM, f"{phase} detection")
+    add(counts)
+    for name, a, b in zip(("boxes", "scores", "valid", "mesh", "pose_lm", "pose_score"), got_d, direct_d(frame)):
+        _bitwise(a, b, f"{phase} detection {name}")
+
+    pose = det._detect_fn(frame.shape[:2], "pose")
+    pose(frame)  # set-up
+    (boxes, scores, valid), counts = _launched(lambda: pose(frame), POSE_DETECT_PER_CALL, f"{phase} pose detector")
+    add(counts)
+    cpu_boxes, cpu_scores, cpu_valid = (t.numpy() for t in
+                                        make_detector(given, device="cpu")._detect_fn(frame.shape[:2], "pose")(frame))
+    boxes, scores, valid = boxes.cpu().numpy(), scores.cpu().numpy(), valid.cpu().numpy()
+    check((valid == cpu_valid).all(), f"{phase} pose detector: valid {valid} vs {cpu_valid}")
+    score_err = float(np.abs(scores - cpu_scores).max())
+    check(score_err <= 1e-4, f"{phase} pose detector: scores differ by {score_err}")
+    kept = cpu_scores[cpu_valid]
+    margin = float(kept[0] - kept[1]) if len(kept) > 1 else None
+    pose_row = {"valid": int(cpu_valid.sum()), "score_max_abs_err": score_err, "top_two_margin": margin}
+    if margin is not None and margin < 1e-4:
+        pose_row["held"] = "scores only: the top two kept scores lie within 1e-4"
+    else:
+        box_err = float(np.abs(boxes - cpu_boxes).max())
+        check(box_err <= 1e-4, f"{phase} pose detector: boxes differ by {box_err}")
+        pose_row.update(held="scores, boxes", box_max_abs_err=box_err)
+    emit(phase, files_bytes=report["files"], import_seconds=report["import_seconds"],
+         cached_import_seconds=report["cached_import_seconds"], fused_bitwise=sorted(want), fused_hit=fused_valid,
+         detection_bitwise=True, launches_per_program={"fused": FUSED_PER_PROGRAM, "detection": DETECTION_PER_PROGRAM,
+                                                       "pose_detector": POSE_DETECT_PER_CALL},
+         launches=launches, pose_detector=pose_row, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def run_staged_stream(est, weights, out_path, frames=8, phase="staged_stream"):
@@ -1956,7 +2067,12 @@ def main():
     from depth_estimation_tpu_torch.ops.kernels import build
     from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
     from depth_estimation_tpu_torch.runtime.video import SyntheticSource
+    from depth_estimation_tpu_torch.utils import checkpoint
 
+    # every phase that builds nets without weights, and every CLI, reads an empty weight cache, so that a
+    # cache on the machine cannot change the random-weight phases (the tflite and evaluate phases set their own)
+    empty_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_cache_")
+    os.environ[checkpoint.CACHE_ENV] = empty_cache.name
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
@@ -2051,6 +2167,8 @@ def main():
     detection_hold(weights, frame, 2.0, "miss")
     detection_depth(weights, frame)
     profile_detection(weights, frame)
+    # the .tflite route: the five files written from the same weights, imported, auto-loaded on the card
+    tflite_launches = run_tflite(est, weights, frame)
     # the serving surface on the same DPT_Large
     server_launches = run_server(est)
     profile_frames(est, frame, "server_profile", batch=SERVER_BATCH)
@@ -2117,7 +2235,8 @@ def main():
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
                 "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
-                "detection": detection_launches, "staged_iris": staged_launches, "server": server_launches,
+                "detection": detection_launches, "tflite": tflite_launches, "staged_iris": staged_launches,
+                "server": server_launches,
                 "fused_server": fused_server_launches, "multistream": multistream_launches,
                 "train": train_launches, "midas_train_step": midas_train_launches, **export_launches}
 
@@ -2130,7 +2249,8 @@ def main():
     print(json.dumps({"kernels": [
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
-              ("dpt_large", "dpt_hybrid", "fused_iris", "staged_iris", "server", "fused_server", "multistream",
+              ("dpt_large", "dpt_hybrid", "fused_iris", "tflite", "staged_iris", "server", "fused_server",
+               "multistream",
                "train", "export_dpt_large", "export_dpt_large_b4", "export_fused"),
               grad=grad_rows["multi_head_attention"],
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
@@ -2143,8 +2263,9 @@ def main():
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
               per_shape={**{key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
                             for key in resize_shapes},
-                         # the linear route: one launch of each a fused program (per_path.fused_iris: 3 a
-                         # frame) and a detection program (per_path.detection: 2 a frame)
+                         # the linear route: one launch of each of 128² and 256² a fused program
+                         # (per_path.fused_iris: 3 a frame) and a detection program (per_path.detection: 2 a
+                         # frame), and of 224² a pose detector stage (per_path.tflite: 3 + 2 + 1)
                          **{key: {"method": "linear", **{k: pre_linear[key][k] for k in K23_KEYS}}
                             for key in DETECTOR_INPUTS}}),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",

@@ -17,9 +17,12 @@ the detection-only distance pipeline (``FaceDetector``,
 surface (``MultiStream``, ``DepthServer``, ``FusedDepthServer``,
 ``BucketedDepthServer``, ``python -m depth_estimation_tpu_torch.tools.serve``),
 training and evaluation (``train/``, ``utils/checkpoint.py``,
-``python -m depth_estimation_tpu_torch.tools.evaluate``) and export
+``python -m depth_estimation_tpu_torch.tools.evaluate``), export
 (``utils/export.py``: the frame programs on ``torch.export``, weights kept
-out of the artifact, ``python -m depth_estimation_tpu_torch.tools.export_program``).
+out of the artifact, ``python -m depth_estimation_tpu_torch.tools.export_program``)
+and the MediaPipe ``.tflite`` weights of the detector nets (``detect/weights.py``,
+``python -m depth_estimation_tpu_torch.tools.import_weights --tflite FILE...``),
+which detectors built without weights load from the cache.
 
 The kernels are ``torch.library`` operators (``torch.ops.depth_tpu_torch``).
 The names below are imported at first use, so that a process that imports

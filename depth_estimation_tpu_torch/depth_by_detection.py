@@ -12,6 +12,12 @@ relative inverse depth inside each face box, reduced on the device. The
 calibration uses w_object=82.6, a reference inconsistency with face.py's
 85.6 that is kept (SURVEY.md §2a C4).
 
+Weights load from the cache ($DEPTH_ESTIMATION_TPU_TORCH_CACHE, default
+~/.cache/depth_estimation_tpu_torch): the detector nets' from the MediaPipe
+.tflite files staged by ``tools.import_weights --tflite FILE...``, the
+``--with-depth`` net's from ``tools.import_weights <ckpt.pt> <model_type>``.
+A net with nothing cached runs on random weights, with a warning.
+
 Usage:
     python -m depth_estimation_tpu_torch.depth_by_detection [--src VIDEO|synthetic:NxHxW]
         [--output out.avi] [--quiet] [--with-depth MODEL] [--staged] [--trace [DIR]]

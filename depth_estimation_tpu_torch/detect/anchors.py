@@ -1,10 +1,11 @@
-"""SSD anchors, box decoding and NMS of the BlazeFace detector (JAX
-``detect/anchors.py``).
+"""SSD anchors, box decoding and NMS of the BlazeFace and BlazePose
+detectors (JAX ``detect/anchors.py``).
 
 The anchors are host numpy. Decode and NMS are fixed-shape tensor functions
 over any leading batch dimensions, so that they run inside the fused frame
-program on the device with no host round trip: NMS over the 896 anchors is
-an O(N²) masked matrix computation, as in the JAX package.
+program on the device with no host round trip: NMS over BlazeFace's 896
+anchors (BlazePose's 2254) is an O(N²) masked matrix computation, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ class AnchorConfig:
 
 
 BLAZEFACE_FRONT = AnchorConfig()
+# pose_detection_cpu.pbtxt SsdAnchorsCalculator: strides (8, 16, 32, 32, 32),
+# aspect 1.0 + interpolated scale → 2 anchors a cell at strides 8 and 16, and
+# 6 a cell on the 7×7 grid the three stride-32 layers share:
+# 28²·2 + 14²·2 + 7²·6 = 2254 anchors
+BLAZEPOSE_DETECTOR = AnchorConfig(input_size=224, heads=((28, 2), (14, 2), (7, 6)))
 
 
 def build_anchors(cfg: AnchorConfig) -> np.ndarray:
@@ -42,7 +48,7 @@ def build_anchors(cfg: AnchorConfig) -> np.ndarray:
 
 
 def decode_boxes(raw: torch.Tensor, anchors: torch.Tensor, scale: float) -> torch.Tensor:
-    """Raw SSD regressions (..., N, 16) = (dx, dy, w, h, 6 keypoints × (x, y))
+    """Raw SSD regressions (..., N, 4 + 2K) = (dx, dy, w, h, K keypoints × (x, y))
     → (ymin, xmin, ymax, xmax, keypoints...) in [0, 1] image units
     (MediaPipe's decode with x/y/w/h_scale = input size and unit anchors)."""
     # the centers and keypoints as (x, y) pairs, each x·aw + ax and y·ah + ay

@@ -9,6 +9,10 @@ The reference's ``FaceDetector.findIris`` computes ``imgRGB`` and then
 feeds the BGR frame to the mesh model (depth_by_detection.py:67-75):
 ``faithful=True`` (the default) keeps that feed, the frame's BGR bytes
 /255; ``faithful=False`` feeds the RGB frame.
+
+Weights: as ``PersonDetector``'s. Built without ``params`` it loads the
+MediaPipe ``.tflite`` files staged in the cache
+(``import_weights --tflite``, ``detect/weights.py``).
 """
 
 from __future__ import annotations
@@ -36,8 +40,11 @@ class _NullFace:
 class FaceDetector:
     def __init__(self, minDetectionCon: float = 0.2, params: Optional[Dict] = None, seed: int = 0,
                  faithful: bool = True, device="cuda"):
-        """params: ``PersonDetector``'s {"blazeface", "facemesh", "blazepose"}
-        state dicts; None means random nets from ``seed``."""
+        """params: ``PersonDetector``'s {"blazeface", "facemesh",
+        "blazepose_detector", "blazepose"} state dicts; None loads the
+        MediaPipe ``.tflite`` files staged in the cache through
+        ``PersonDetector`` (``detect/weights.py``), with random nets from
+        ``seed`` for those it finds no file for."""
         self._impl = PersonDetector(_NullFace(), minDetectionCon, params=params, seed=seed, device=device)
         self.minDetectionCon = minDetectionCon
         self.faithful = faithful

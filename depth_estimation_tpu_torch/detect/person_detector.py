@@ -9,33 +9,38 @@ runs its nets on one frame through the fused program's own branch functions
 (``runtime/fused.py``), then fits the iris circles on the host as the
 reference does. The streaming loop runs the fused program instead.
 
-Weights: ``params=None`` gives random weights from ``seed`` (pipeline-valid,
-numerically meaningless); ``params={"blazeface": sd, "facemesh": sd,
-"blazepose": sd}`` takes state dicts of the port's nets, such as
-``utils/convert.py::params_from_jax_*`` makes from the JAX package's trees.
+Weights: ``params=None`` loads the MediaPipe ``.tflite`` files staged in the
+cache (``detect/weights.py``: ``$DEPTH_ESTIMATION_TPU_TORCH_CACHE/tflite/``,
+converted once and cached), and gives the nets that it finds no file for
+random weights from ``seed`` (pipeline-valid, numerically meaningless), with
+a warning that names them; ``params={"blazeface": sd, "facemesh": sd,
+"blazepose_detector": sd, "blazepose": sd}`` takes state dicts of the port's
+nets, such as the converters of ``utils/convert.py`` make from ``.tflite``
+files or from the JAX package's trees (a key left out: random weights).
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.config import BODY_HEAD, CARD, HEAD, LEFT_EYE, LEFT_IRIS, RIGHT_EYE, RIGHT_IRIS
-from depth_estimation_tpu_torch.detect.anchors import BLAZEFACE_FRONT, build_anchors
+from depth_estimation_tpu_torch.detect.anchors import BLAZEFACE_FRONT, BLAZEPOSE_DETECTOR, build_anchors
 from depth_estimation_tpu_torch.detect.circle import min_enclosing_circle
 from depth_estimation_tpu_torch.device import full_f32, resolve_device
 from depth_estimation_tpu_torch.estimator import random_state_dict
 from depth_estimation_tpu_torch.models.blazeface import BlazeFace
-from depth_estimation_tpu_torch.models.blazepose import BlazePose
+from depth_estimation_tpu_torch.models.blazepose import BlazePose, BlazePoseDetector
 from depth_estimation_tpu_torch.models.facemesh import FaceMeshWithIris
-from depth_estimation_tpu_torch.runtime.fused import blazeface_branch, crop_box, mesh_points, pose_branch, to_int32
+from depth_estimation_tpu_torch.runtime.fused import (blazeface_branch, crop_box, mesh_points, pose_branch,
+                                                      pose_detector_branch, to_int32)
 
-# (params key, net, seed offset): the JAX detector's seeds, seed + 2 being its
-# pose detector, which the fused path never runs
-_NETS = (("blazeface", BlazeFace, 0), ("facemesh", FaceMeshWithIris, 1), ("blazepose", BlazePose, 3))
+# (params key, net, seed offset): the JAX detector's seeds
+_NETS = (("blazeface", BlazeFace, 0), ("facemesh", FaceMeshWithIris, 1), ("blazepose_detector", BlazePoseDetector, 2),
+         ("blazepose", BlazePose, 3))
 
 
 def _load(make, sd: Optional[Mapping], seed: int, device: torch.device) -> torch.nn.Module:
@@ -74,15 +79,42 @@ class PersonDetector:
         self.face = face
         self.device = resolve_device(device)
         if params is None:
-            warnings.warn(f"No detector weights given; using random initialization (seed {seed}).",
-                          stacklevel=2)
-            params = {}
-        self._face_det, self._mesh, self._pose = (_load(make, params.get(key), seed + off, self.device)
-                                                  for key, make, off in _NETS)
+            from depth_estimation_tpu_torch.detect.weights import load_detector_params
+
+            params = load_detector_params()
+            missing = [key for key, _make, _off in _NETS if key not in params]
+            if missing:
+                warnings.warn(f"No detector weights in the cache for {missing}; using random initialization "
+                              f"(seed {seed}).", stacklevel=2)
+        self._face_det, self._mesh, self._pose_det, self._pose = (
+            _load(make, params.get(key), seed + off, self.device) for key, make, off in _NETS)
         self._face_anchors = torch.from_numpy(build_anchors(BLAZEFACE_FRONT)).to(self.device)
+        self._pose_anchors = torch.from_numpy(build_anchors(BLAZEPOSE_DETECTOR)).to(self.device)
 
     def _frame(self, img: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(img)[None]).to(self.device)
+
+    def _detect_fn(self, in_hw: Tuple[int, int], kind: str):
+        """JAX ``_detect_fn``: the detector stage of ``kind`` ("face":
+        BlazeFace at ``minDetectionCon``; "pose": BlazePoseDetector at 0.5)
+        as fn(img_u8 (H, W, 3) BGR, numpy or a tensor) → the frame's
+        weighted-NMS (boxes (16, 16 or 12), scores (16,), valid (16,)) on the
+        device."""
+        h, w = int(in_hw[0]), int(in_hw[1])
+
+        def fn(img_u8):
+            if tuple(img_u8.shape[:2]) != (h, w):
+                raise ValueError(f"a frame of {tuple(img_u8.shape[:2])} given to the {(h, w)} detector")
+            frames = (img_u8 if isinstance(img_u8, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img_u8))
+                      )[None].to(self.device)
+            with torch.inference_mode(), full_f32():
+                if kind == "face":
+                    out = blazeface_branch(self._face_det, self._face_anchors, self.minDetectionCon, frames)
+                else:
+                    out = pose_detector_branch(self._pose_det, self._pose_anchors, frames)
+            return tuple(t[0] for t in out)
+
+        return fn
 
     # -- public API (reference-compatible) ----------------------------------
 

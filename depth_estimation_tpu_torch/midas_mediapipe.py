@@ -5,6 +5,12 @@ detector, and stream a video through the fused frame program (or, with
 ``--no-fused``, the staged loop: the depth program, then ``findIris``, each
 frame), writing the annotated frame and the depth frame side by side.
 
+Weights load from the cache ($DEPTH_ESTIMATION_TPU_TORCH_CACHE, default
+~/.cache/depth_estimation_tpu_torch): the depth net's from
+``tools.import_weights <ckpt.pt> <model_type>``, the detector nets' from the
+MediaPipe .tflite files staged by ``tools.import_weights --tflite FILE...``.
+A net with nothing cached runs on random weights, with a warning.
+
 Usage:
     python -m depth_estimation_tpu_torch.midas_mediapipe [--model-type DPT_Large]
         [--src VIDEO|synthetic:NxHxW] [--output out.avi] [--no-fused] [--microbatch K]

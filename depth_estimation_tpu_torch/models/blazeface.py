@@ -22,7 +22,7 @@ STRIDE2_AT_16 = (2, 5)
 WIDTHS_8 = (96, 96, 96, 96, 96)
 
 
-def _ssd_head(conv: nn.Conv2d, fm: torch.Tensor, values: int) -> torch.Tensor:
+def ssd_head(conv: nn.Conv2d, fm: torch.Tensor, values: int) -> torch.Tensor:
     """A 1×1 head's output in the anchors' order (y, x, then per cell): the
     NHWC reshape of the JAX head, so NCHW is permuted to (B, H, W, C) first."""
     out = conv(fm).permute(0, 2, 3, 1)
@@ -58,6 +58,6 @@ class BlazeFace(nn.Module):
         for name in self.names_8:
             h = getattr(self, name)(h)
         f8 = h  # (B, 96, 8, 8)
-        scores = torch.cat([_ssd_head(self.classifier_16, f16, 1), _ssd_head(self.classifier_8, f8, 1)], dim=1)
-        boxes = torch.cat([_ssd_head(self.regressor_16, f16, 16), _ssd_head(self.regressor_8, f8, 16)], dim=1)
+        scores = torch.cat([ssd_head(self.classifier_16, f16, 1), ssd_head(self.classifier_8, f8, 1)], dim=1)
+        boxes = torch.cat([ssd_head(self.regressor_16, f16, 16), ssd_head(self.regressor_8, f8, 16)], dim=1)
         return boxes, scores

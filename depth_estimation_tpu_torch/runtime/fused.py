@@ -41,16 +41,30 @@ from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
 from depth_estimation_tpu_torch.ops.postprocess import to_video_frame_u8
 from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear_rect, to_int32, u8_to_01
 
-FACE_INPUT, MESH_INPUT, POSE_INPUT = 128, 192, 256
+FACE_INPUT, MESH_INPUT, POSE_INPUT, POSE_DETECTOR_INPUT = 128, 192, 256, 224
+
+
+def _ssd_branch(net, anchors: torch.Tensor, size: int, thresh: float, frames: torch.Tensor):
+    """u8 BGR (B, H, W, 3) → an SSD detector's weighted-NMS detections: K2's
+    linear route to size² with mean = std = 0.5 (JAX's ``x/127.5 − 1`` of
+    the RGB frame, then the linear resize), the net, decode, NMS at IoU 0.3."""
+    x = fused_preprocess(frames, (size, size), (0.5,) * 3, (0.5,) * 3, True, "linear")
+    raw_boxes, raw_scores = net(x)
+    boxes = decode_boxes(raw_boxes, anchors, float(size))
+    return weighted_nms(boxes, decode_scores(raw_scores), iou_threshold=0.3, score_threshold=thresh)
 
 
 def blazeface_branch(face_net, anchors: torch.Tensor, thresh: float, frames: torch.Tensor):
     """u8 BGR (B, H, W, 3) → BlazeFace's weighted-NMS detections: boxes
     (B, 16, 16), scores (B, 16), valid (B, 16)."""
-    x = fused_preprocess(frames, (FACE_INPUT, FACE_INPUT), (0.5,) * 3, (0.5,) * 3, True, "linear")
-    raw_boxes, raw_scores = face_net(x)
-    boxes = decode_boxes(raw_boxes, anchors, float(FACE_INPUT))
-    return weighted_nms(boxes, decode_scores(raw_scores), iou_threshold=0.3, score_threshold=thresh)
+    return _ssd_branch(face_net, anchors, FACE_INPUT, thresh, frames)
+
+
+def pose_detector_branch(pose_det_net, anchors: torch.Tensor, frames: torch.Tensor):
+    """u8 BGR (B, H, W, 3) → BlazePoseDetector's weighted-NMS detections over
+    its 2254 anchors at score 0.5 (JAX ``_detect_fn(..., "pose")``): boxes
+    (B, 16, 12), scores (B, 16), valid (B, 16). One K2 launch."""
+    return _ssd_branch(pose_det_net, anchors, POSE_DETECTOR_INPUT, 0.5, frames)
 
 
 def crop_box(boxes: torch.Tensor, h: int, w: int):

@@ -1,1 +1,1 @@
-"""Weight conversion and debug guards."""
+"""Weight conversion (JAX trees and MediaPipe ``.tflite`` files), checkpoints, export and debug guards."""

@@ -3,9 +3,11 @@
 The port's depth modules keep the torch-hub key names, so these are the
 inverses of the JAX package's ``utils/convert.py::convert_dpt``,
 ``::convert_midas_small`` and ``::convert_midas_v21`` (hub state dict → Flax
-params). The detector nets (BlazeFace, FaceMesh+iris, BlazePose) keep the
-Flax module names instead, so their converters walk the tree key for key.
-They let both packages run on the same weights.
+params). The detector nets (BlazeFace, FaceMesh+iris, BlazePoseDetector,
+BlazePose) keep the Flax module names instead, so their converters walk the
+tree key for key. They let both packages run on the same weights. The last
+section converts MediaPipe ``.tflite`` files straight to the port's detector
+state dicts (JAX ``convert_*_tflite``).
 
 Layout rules (inverse of the JAX converter's):
   conv kernel        (kH, kW, I, O) → (O, I, kH, kW)   (patch embed included)
@@ -21,15 +23,20 @@ Layout rules (inverse of the JAX converter's):
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import inspect
+import warnings
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from depth_estimation_tpu_torch.models.dpt import DPT_LARGE, DPTConfig
 from depth_estimation_tpu_torch.models.efficientnet_lite import LAYER_STAGES, LITE3_STAGES
+from depth_estimation_tpu_torch.models.layers import PReLU
 from depth_estimation_tpu_torch.models.midas_v21 import MIDAS_V21, MidasV21Config
 from depth_estimation_tpu_torch.models.resnetv2 import STAGE_DEPTHS
+from depth_estimation_tpu_torch.utils.tflite import read_tflite_ops
 
 
 def f2t_conv(k) -> np.ndarray:
@@ -241,3 +248,197 @@ def params_from_jax_blazepose(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params of the JAX ``models.blazepose.BlazePose`` → the port's
     ``BlazePose`` state dict (its unused heatmap branch included)."""
     return _detector(params)
+
+
+def params_from_jax_blazepose_detector(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of the JAX ``models.blazepose.BlazePoseDetector`` → the
+    port's ``BlazePoseDetector`` state dict."""
+    return _detector(params)
+
+
+# -- TFLite → the port's state dicts (the MediaPipe detector stack) -----------
+#
+# The detector weights ship as .tflite flatbuffers (mediapipe 0.8.11). Their
+# tensor names are converter artifacts, so conversion keys on structure: the
+# operator stream in execution order (utils/tflite.py::read_tflite_ops) is
+# matched against the net's weight layers in execution order
+# (``tflite_layer_order``), and every assignment is shape-checked after the
+# layout change, so a file either proves the architecture layer for layer or
+# fails naming the first layer that differs. The layouts go from TFLite
+# straight to torch:
+#
+#   CONV_2D kernel             (O, H, W, I) → (O, I, H, W)   permute (0, 3, 1, 2)
+#   DEPTHWISE_CONV_2D kernel   (1, H, W, C) → (C, 1, H, W)   permute (3, 0, 1, 2)
+#   FULLY_CONNECTED kernel     (out, in)    → nn.Linear's (out, in)
+#   PRELU alpha                (..., C)     → (C,)
+
+_TFLITE_WEIGHT_OPS = {"CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED", "PRELU"}
+
+
+def tflite_weight_layers(ops, consts) -> List[Tuple[str, np.ndarray, Optional[np.ndarray]]]:
+    """[(kind, kernel or alpha, bias or None), ...] in execution order."""
+    out = []
+    for op in ops:
+        if op.op not in _TFLITE_WEIGHT_OPS:
+            continue
+        kernel = consts.get(op.inputs[1]) if len(op.inputs) > 1 else None
+        if kernel is None:
+            continue  # dynamic weights (never the case in these models)
+        bias = None
+        if op.op != "PRELU" and len(op.inputs) > 2 and op.inputs[2] >= 0:
+            bias = consts.get(op.inputs[2])
+        out.append((op.op, np.asarray(kernel), None if bias is None else np.asarray(bias)))
+    return out
+
+
+def tflite_layer_order(net: nn.Module, input_shape) -> List[str]:
+    """The module names of ``net``'s weight layers (leaf ``nn.Conv2d``,
+    ``nn.Linear``, ``PReLU``) in the order one forward calls them: JAX
+    ``flax_layer_order``'s order, in the port's names. The forward runs on
+    the meta device (no arithmetic) on an ``input_shape`` (NCHW) input, with
+    ``return_full=True`` where the net takes it, so that ``BlazePose`` runs
+    its heatmap branch, in JAX's order."""
+    kinds = (nn.Conv2d, nn.Linear, PReLU)
+    order: List[str] = []
+    hooks = [m.register_forward_pre_hook(lambda _m, _a, name=name: order.append(name) if name not in order else None)
+             for name, m in net.named_modules() if isinstance(m, kinds)]
+    try:
+        meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in net.state_dict().items()}
+        kwargs = {"return_full": True} if "return_full" in inspect.signature(net.forward).parameters else {}
+        with torch.no_grad():
+            torch.func.functional_call(net, meta, (torch.empty(tuple(input_shape), device="meta"),), kwargs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return order
+
+
+def _convert_layer(kind: str, kernel: np.ndarray, slot_shape) -> np.ndarray:
+    if kind == "CONV_2D":
+        return kernel.transpose(0, 3, 1, 2)
+    if kind == "DEPTHWISE_CONV_2D":
+        k = kernel.transpose(3, 0, 1, 2)
+        if k.shape != tuple(slot_shape) and kernel.shape[0] != 1:
+            # the channel-multiplier layout variant, read as JAX reads it: (H, W, 1, C·M), then the conv rule
+            k = f2t_conv(kernel.reshape(kernel.shape[1], kernel.shape[2], 1, -1))
+        return k
+    if kind == "FULLY_CONNECTED":
+        return kernel
+    return kernel.reshape(-1)  # PRELU
+
+
+def _slot_expected_kind(leaf: Mapping) -> str:
+    if "alpha" in leaf:
+        return "PRELU"
+    return "FULLY_CONNECTED" if len(leaf["weight"]) == 2 else "CONV_2D"
+
+
+def _op_matches_slot(kind: str, converted: np.ndarray, bias, leaf: Mapping) -> bool:
+    """The whole structural agreement: kernel shape, PReLU or not, and the
+    bias (present or not, and its shape). The bias is part of the match, so a
+    shape-coincident conv of a branch the net leaves out cannot bind to a
+    slot whose bias it does not share."""
+    want = leaf["alpha"] if "alpha" in leaf else leaf["weight"]
+    if converted.shape != tuple(want):
+        return False
+    if ("alpha" in leaf) != (kind == "PRELU"):
+        return False
+    if "alpha" not in leaf:
+        if ("bias" in leaf) != (bias is not None):
+            return False
+        if bias is not None and bias.shape != tuple(leaf["bias"]):
+            return False
+    return True
+
+
+def assign_tflite_weights(ops, consts, net: nn.Module, input_shape, model_name: str = "?",
+                          allow_skips: bool = False) -> Dict[str, torch.Tensor]:
+    """Map a TFLite op stream onto ``net``'s state dict structurally (JAX
+    ``assign_tflite_weights``).
+
+    For each weight layer, in execution order (``tflite_layer_order``), the
+    next compatible weight op is taken. By default every weight op must be
+    taken in order: a foreign op raises instead of being stepped over, which
+    is what makes a conversion prove the architecture layer for layer. For
+    graphs that carry whole branches the net leaves out (the pose landmark
+    file's segmentation decoder) pass ``allow_skips=True``: each op stepped
+    over is then named in a warning. A layer that nothing fills raises a
+    ``ValueError`` naming it and the position in the stream."""
+    layers = tflite_weight_layers(ops, consts)
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    pos = 0
+    skipped: List[Tuple[int, str]] = []
+    for name in tflite_layer_order(net, input_shape):
+        leaf = {p: shapes[f"{name}.{p}"] for p in ("weight", "bias", "alpha") if f"{name}.{p}" in shapes}
+        want = leaf["alpha"] if "alpha" in leaf else leaf["weight"]
+        found = None
+        for j in range(pos, len(layers) if allow_skips else min(pos + 1, len(layers))):
+            kind, kernel, bias = layers[j]
+            k = _convert_layer(kind, kernel, want)
+            if _op_matches_slot(kind, k, bias, leaf):
+                found = (j, k, bias)
+                break
+        if found is None:
+            got = (f"next op is {layers[pos][0]} kernel {layers[pos][1].shape}" if pos < len(layers)
+                   else "op stream exhausted")
+            raise ValueError(
+                f"{model_name}: no TFLite weight matches layer {name} (expected {_slot_expected_kind(leaf)} "
+                f"kernel shape {want}; {got}; position {pos}/{len(layers)}"
+                + ("" if allow_skips else "; strict in-order matching — "
+                   "pass allow_skips=True only for graphs with known extra branches") + ")")
+        j, k, bias = found
+        skipped.extend((i, layers[i][0]) for i in range(pos, j))
+        pos = j + 1
+        out[f"{name}.alpha" if "alpha" in leaf else f"{name}.weight"] = k
+        if "bias" in leaf:
+            out[f"{name}.bias"] = bias
+    if skipped:
+        warnings.warn(f"{model_name}: skipped {len(skipped)} weight op(s) from branches the port's net does not "
+                      f"implement: {skipped[:8]}" + ("..." if len(skipped) > 8 else ""), stacklevel=2)
+    return {k: torch.from_numpy(np.array(out[k], dtype=np.float32)) for k in shapes}  # copies: the file's are read-only
+
+
+def _meta(make) -> nn.Module:
+    with torch.device("meta"):
+        return make()
+
+
+def convert_blazeface_tflite(path) -> Dict[str, torch.Tensor]:
+    """face_detection_short_range.tflite → the port's ``BlazeFace`` state dict."""
+    from depth_estimation_tpu_torch.models.blazeface import BlazeFace
+
+    ops, consts, _ = read_tflite_ops(path)
+    return assign_tflite_weights(ops, consts, _meta(BlazeFace), (1, 3, 128, 128), "BlazeFace")
+
+
+def convert_facemesh_tflite(face_path, iris_path) -> Dict[str, torch.Tensor]:
+    """face_landmark.tflite + iris_landmark.tflite → the port's
+    ``FaceMeshWithIris`` state dict (``mesh.*`` and ``iris.*``)."""
+    from depth_estimation_tpu_torch.models.facemesh import FaceMesh, IrisLandmark
+
+    sd = {}
+    for prefix, path, make, shape, name in (("mesh", face_path, FaceMesh, (1, 3, 192, 192), "FaceMesh"),
+                                            ("iris", iris_path, IrisLandmark, (1, 3, 64, 64), "IrisLandmark")):
+        ops, consts, _ = read_tflite_ops(path)
+        sd.update({f"{prefix}.{k}": v for k, v in assign_tflite_weights(ops, consts, _meta(make), shape,
+                                                                         name).items()})
+    return sd
+
+
+def convert_blazepose_detector_tflite(path) -> Dict[str, torch.Tensor]:
+    """pose_detection.tflite → the port's ``BlazePoseDetector`` state dict."""
+    from depth_estimation_tpu_torch.models.blazepose import BlazePoseDetector
+
+    ops, consts, _ = read_tflite_ops(path)
+    return assign_tflite_weights(ops, consts, _meta(BlazePoseDetector), (1, 3, 224, 224), "BlazePoseDetector")
+
+
+def convert_blazepose_tflite(path) -> Dict[str, torch.Tensor]:
+    """pose_landmark_{lite,full,heavy}.tflite → the port's ``BlazePose`` state dict."""
+    from depth_estimation_tpu_torch.models.blazepose import BlazePose
+
+    ops, consts, _ = read_tflite_ops(path)
+    # the real pose landmark graph carries segmentation and heatmap branches that the net leaves out:
+    # stepping over them is expected here (and warned)
+    return assign_tflite_weights(ops, consts, _meta(BlazePose), (1, 3, 256, 256), "BlazePose", allow_skips=True)

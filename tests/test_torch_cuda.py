@@ -444,7 +444,7 @@ def test_estimator_on_the_card_holds_the_cpu(cuda, name):
     assert float(np.abs(got - want).max()) / scale < 1e-3
 
 
-def test_fused_program_on_the_card_holds_the_cpu(cuda):
+def test_fused_program_on_the_card_holds_the_cpu(cuda, tmp_path, monkeypatch):
     """The fused iris/pose + DPT_Large program on the card (its kernels)
     against the same weights on the CPU at 240×320, on a hit: depth within
     the accuracy gate, detections within 1e-4; launches K1 24, K2 3, K3 1."""
@@ -456,6 +456,7 @@ def test_fused_program_on_the_card_holds_the_cpu(cuda):
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
 
+    monkeypatch.setenv("DEPTH_ESTIMATION_TPU_TORCH_CACHE", str(tmp_path))  # random weights, whatever ~/.cache holds
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         est = DepthEstimator("DPT_Large", seed=0, verbose=False)

@@ -31,7 +31,7 @@ from depth_estimation_tpu_torch.detect import circle as tcirc
 from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
 from depth_estimation_tpu_torch.geometry.face import FaceDet
 from depth_estimation_tpu_torch.models.blazeface import BlazeFace
-from depth_estimation_tpu_torch.models.blazepose import BlazePose
+from depth_estimation_tpu_torch.models.blazepose import BlazePose, BlazePoseDetector
 from depth_estimation_tpu_torch.models.facemesh import FaceMeshWithIris
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear, crop_resize_bilinear_rect
@@ -44,7 +44,7 @@ NETS = {
     "blazeface": (JaxBlazeFace, 128, BlazeFace, convert.params_from_jax_blazeface),
     "facemesh": (JaxFaceMeshWithIris, 192, FaceMeshWithIris, convert.params_from_jax_facemesh),
     "blazepose": (JaxBlazePose, 256, BlazePose, convert.params_from_jax_blazepose),
-    "blazepose_detector": (JaxBlazePoseDetector, 224, None, None),
+    "blazepose_detector": (JaxBlazePoseDetector, 224, BlazePoseDetector, convert.params_from_jax_blazepose_detector),
 }
 
 
@@ -249,7 +249,7 @@ def test_crop_resize_square_matches_jax(rng):
 # -- detector nets --------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key", ["blazeface", "facemesh", "blazepose"])
+@pytest.mark.parametrize("key", ["blazeface", "facemesh", "blazepose", "blazepose_detector"])
 def test_detector_net_matches_jax(trees, rng, key):
     """Each net on the same weights and a batch of 2, max-scaled 1e-4."""
     jmod, size, tmod, conv = NETS[key]
@@ -375,13 +375,14 @@ def test_visualize_draws_on_the_frame(detectors, rng):
     assert tdet.frame is frame and (frame != img).any()
 
 
-def test_random_detector_weights_warn_and_are_seeded():
+def test_random_detector_weights_warn_and_are_seeded(tmp_path, monkeypatch):
+    monkeypatch.setenv("DEPTH_ESTIMATION_TPU_TORCH_CACHE", str(tmp_path))  # no staged .tflite file
     with pytest.warns(UserWarning, match="random"):
         a = PersonDetector(FaceDet(20, CARD), seed=1, device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         b = PersonDetector(FaceDet(20, CARD), seed=1, device="cpu")
-    for na, nb in ((a._face_det, b._face_det), (a._mesh, b._mesh), (a._pose, b._pose)):
+    for na, nb in ((a._face_det, b._face_det), (a._mesh, b._mesh), (a._pose_det, b._pose_det), (a._pose, b._pose)):
         for (ka, va), (kb, vb) in zip(na.state_dict().items(), nb.state_dict().items()):
             assert ka == kb and torch.equal(va, vb)
     assert torch.equal(a._pose.stem_act.alpha, torch.full((16,), 0.25))

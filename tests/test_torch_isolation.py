@@ -1,4 +1,5 @@
-"""The port imports neither JAX/Flax nor the JAX package."""
+"""The port imports neither JAX/Flax nor the JAX package, nor ``flatbuffers``
+(the machine with the card has none)."""
 
 import ast
 import pathlib
@@ -6,7 +7,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "chex", "optax", "depth_estimation_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "chex", "optax", "depth_estimation_tpu", "flatbuffers")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -36,6 +37,37 @@ def _imported_roots(path):
 
 def test_no_forbidden_import_statements():
     files = sorted((ROOT / "depth_estimation_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "k4_breakdown.py", ROOT / "tools" / "train_grad_precision.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "k4_breakdown.py", ROOT / "tools" / "train_grad_precision.py",
+        ROOT / "tools" / "detection_times.py"]
     bad = {str(f.relative_to(ROOT)): r for f in files for r in _imported_roots(f) if r in FORBIDDEN}
     assert not bad, bad
+
+
+_TFLITE_WITHOUT_FLATBUFFERS = """
+import os, sys, tempfile
+sys.modules["flatbuffers"] = None  # any import of it raises ImportError
+import numpy as np, torch
+from depth_estimation_tpu_torch.detect import weights
+from depth_estimation_tpu_torch.models.blazepose import BlazePoseDetector
+from depth_estimation_tpu_torch.utils import convert, tflite, tflite_synth
+with torch.device("meta"):
+    net = BlazePoseDetector()
+blob, sd = tflite_synth.synthesize_model_file(net, (1, 3, 224, 224), np.random.default_rng(0))
+with tempfile.TemporaryDirectory() as d:
+    os.environ["DEPTH_ESTIMATION_TPU_TORCH_CACHE"] = d
+    weights.tflite_dir().mkdir(parents=True)
+    (weights.tflite_dir() / "pose_detection.tflite").write_bytes(blob)
+    ops, consts, _ = tflite.read_tflite_ops(weights.tflite_dir() / "pose_detection.tflite")
+    got = weights.load_detector_params()["blazepose_detector"]
+assert got.keys() == sd.keys() and all(torch.equal(got[k], sd[k]) for k in sd)
+print(len(ops), len(consts))
+"""
+
+
+def test_tflite_route_needs_no_flatbuffers():
+    """In a fresh process where ``flatbuffers`` cannot be imported, the
+    reader, the writer and the weight cache import, and a synthesized
+    pose_detection.tflite converts back to the state dict it encodes."""
+    r = subprocess.run([sys.executable, "-c", _TFLITE_WITHOUT_FLATBUFFERS], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -92,9 +92,11 @@ def test_import_refuses_a_foreign_checkpoint(hub_pt, tmp_path):
     assert tckpt.load_params(NAME) is None
 
 
-def test_import_weights_cli_refuses_tflite_and_bad_arguments(capsys):
-    assert timport.main(["--tflite", "face_detection_short_range.tflite"]) == 2
-    assert "queue A items 5-7.4" in capsys.readouterr().err
+def test_import_weights_cli_refuses_tflite_and_bad_arguments(capsys, tmp_path):
+    """``--tflite`` with no file or a missing one, and a lone argument: usage errors (2)."""
+    assert timport.main(["--tflite"]) == 2
+    assert timport.main(["--tflite", str(tmp_path / "face_detection_short_range.tflite")]) == 2
+    assert "no such file" in capsys.readouterr().err
     assert timport.main(["only_one_argument"]) == 2
 
 
