@@ -154,11 +154,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    weight bytes, loaded and live host ms. Then ``tools.export_program`` for
    MiDaS_small, its line and its file against a live estimator.
 
+17. parallel, parallel_tp — the parallel surface (``parallel/``): a world of
+   one over NCCL (``init_process_group`` through a FileStore), ``make_mesh(1)``,
+   at full width: DPT_Large ``predict_batch_sharded`` at the servers' batch
+   of 8 frames of 480×640 and ``predict_sharded`` at 480×640 (each against
+   ``predict_batch`` / ``predict``, max-scaled 1e-5; K1 24, K2 1, K3 1),
+   ``dpt_apply_pipelined`` with pp=1 and 2 microbatches on a batch of 2
+   384×512 network inputs (against the model's forward, 1e-4; K1 48), MiDaS
+   v2.1 ``predict_batch_sharded`` at batch 4 (1e-5; K4 30, K2 1, K3 1) and
+   ``fit(mesh=)`` of DPT_Large at batch 2, 240×320: one step with a
+   checkpoint, then a resume to step 2 (K1 48, K2 2, K3 2), its two losses
+   within 1e-4 relative of a ``fit`` without a mesh. Then tensor parallelism
+   one rank at a time: one full-width DPT_Large block (C=1024, 16 heads,
+   577 tokens, batch 1, f32) cut by ``shard_params`` for tp ∈ {2, 4}; each
+   rank's shard runs its attention (K1 at 16/tp heads) and MLP with no group
+   and its row-parallel biases zeroed, the script sums the partial outputs
+   and adds the biases, and the sum is held against the whole block
+   (max-scaled 2e-5); K1 checked and timed at (1, 8, 577, 64) and (1, 4,
+   577, 64). Each path prints its max-scaled error and launches.
+
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
 fused, detection, tflite, staged, server, fused_server, multistream, train (8
-steps of ``fit``) and midas_train_step paths' and the loaded programs'
-(``export_*``), the backward under ``grad``; K2's
+steps of ``fit``) and midas_train_step paths', the loaded programs'
+(``export_*``) and the parallel paths' (``parallel_*``), the backward under
+``grad``, K1 at its tp shapes under ``tp_heads``; K2's
 and K3's for each network input under ``per_shape``, with K2's linear
 route's shapes),
 the ``nvidia-smi`` line, and last
@@ -1664,10 +1684,11 @@ def run_train(est, phase="train", batch=2, src_hw=(240, 320), steps=8, ckpt_ever
     the same optimizer continues 4 steps in memory, and ``fit`` resumes from
     the file to step 8. Their first two losses, which the restored weights
     (step 5) and moments and step counts (step 6) decide, lie within
-    1e-4 relative, all four within 1e-3: the card's
-    atomic adds in the bilinear upsampling's backward differ run to run, and
-    the random net's AdamW steps amplify that, to 1.0e-4 by step 8 (and
-    some 4% between two runs from step 0). As a control, a run resumed from
+    1e-4 relative, all four within 1e-3. The step is deterministic on the
+    card (cuDNN's deterministic algorithms, the upsampling's matrix
+    backward), so the two runs should agree bit for bit; before that, atomic
+    adds amplified by the random net's AdamW steps put them up to 3.2e-3
+    apart by step 8 (``tools/train_determinism.py``). As a control, a run resumed from
     the file with its AdamW moments zeroed must miss 1e-4 (it missed by
     0.30 at step 6). Then ms per step (CUDA events,
     ``timed_steps`` steps after the runs), images/s and the peak memory of
@@ -2057,6 +2078,145 @@ def run_export_cli(tmp, phase="export_cli"):
     emit(phase, line=line, seconds=seconds, loaded_vs_live_max_scaled=rel)
 
 
+def max_scaled_err(got, want):
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def held(phase, path, err, tol, counts, per_call, calls=1):
+    """Check one parallel path against its non-mesh counterpart and its launches; the path's row."""
+    check(err <= tol, f"{phase} {path}: max-scaled error {err} over {tol}")
+    check(counts == launches_per(per_call, calls), f"{phase} {path}: launch counts {counts}")
+    return {"max_scaled_err": err, "tol": tol, "launches": counts}
+
+
+def run_parallel(est, frames8, phase="parallel", batch=2, src_hw=(240, 320)):
+    """The world-of-one paths (see the module docstring, phase 17)."""
+    import torch.distributed as dist
+
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
+    from depth_estimation_tpu_torch.parallel.mesh import make_mesh
+    from depth_estimation_tpu_torch.parallel.pipeline import dpt_apply_pipelined
+    from depth_estimation_tpu_torch.train.data import TrainingApply, batches, device_prefetch, synthetic_pairs
+    from depth_estimation_tpu_torch.train.loop import fit
+
+    t_phase = time.perf_counter()
+    rows, per_path = {}, {}
+
+    def counted(call):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    frames = frames8.cpu().numpy()
+    midas = DepthEstimator("MiDaS", seed=0, device="cuda", verbose=False)
+    # one batch a pass: a resumed fit restarts the data, and its step 2 must see the straight run's batch
+    data = device_prefetch(batches(synthetic_pairs(batch, *src_hw, seed=1), batch), device="cuda")
+    weights = live_head(est, next(iter(data))[0])
+
+    def model():
+        return TrainingApply(DepthEstimator(est.model_type, params=weights, device="cuda", verbose=False).model,
+                             est.preprocess_cfg)
+
+    _, plain_hist = fit(model(), data, steps=2, log_every=1, verbose=False, device="cuda")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh(1, device="cuda")
+            want = est.predict_batch(frames)
+            got, counts = counted(lambda: est.predict_batch_sharded(frames, mesh))
+            rows["predict_batch_sharded"] = held(phase, "predict_batch_sharded", max_scaled_err(got, want), 1e-5,
+                                                 counts, DPT_PER_PROGRAM)
+            want = est.predict(frames[0])
+            got, counts = counted(lambda: est.predict_sharded(frames[0], mesh))
+            rows["predict_sharded"] = held(phase, "predict_sharded", max_scaled_err(got, want), 1e-5, counts,
+                                           DPT_PER_PROGRAM)
+            cfg = est.preprocess_cfg
+            x = fused_preprocess(frames8[:2], (384, 512), cfg.mean, cfg.std)
+            with torch.inference_mode(), est._numerics():
+                want = est.model(x)
+                got, counts = counted(lambda: dpt_apply_pipelined(est.model, x, mesh, microbatches=2))
+            rows["pipelined"] = held(phase, "pipelined", max_scaled_err(got, want), 1e-4, counts,
+                                     {**DPT_PER_PROGRAM, "fused_preprocess": 0, "resize_planes": 0}, 2)
+            want = midas.predict_batch(frames[:MICROBATCH])
+            got, counts = counted(lambda: midas.predict_batch_sharded(frames[:MICROBATCH], mesh))
+            rows["midas_batch_sharded"] = held(phase, "midas_batch_sharded", max_scaled_err(got, want), 1e-5,
+                                               counts, MIDAS_PER_PROGRAM)
+            del midas
+            ckpt = os.path.join(tmp, "ckpt")
+
+            def sharded_fit():
+                _, first = fit(model(), data, steps=1, mesh=mesh, ckpt_dir=ckpt, ckpt_every=1, log_every=1,
+                               verbose=False)
+                state, resumed = fit(model(), data, steps=2, mesh=mesh, ckpt_dir=ckpt, log_every=1, verbose=False)
+                check(state.step == 2 and [s for s, _ in first + resumed] == [1, 2],
+                      f"{phase} fit: histories {first}, {resumed}")
+                return [loss for _, loss in first + resumed]
+
+            losses, counts = counted(sharded_fit)
+            torch.cuda.empty_cache()
+            plain = [loss for _, loss in plain_hist]
+            err = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            rows["fit"] = held(phase, "fit", err, 1e-4, counts, TRAIN_PER_STEP, 2)
+            rows["fit"].update(losses=losses, plain_losses=plain, batch=batch, src_hw=list(src_hw))
+        finally:
+            dist.destroy_process_group()
+    emit(phase, world_size=1, backend="nccl", paths=rows, seconds=time.perf_counter() - t_phase)
+    per_path.update({f"parallel_{k}": v["launches"] for k, v in rows.items()})
+    return per_path
+
+
+def run_parallel_tp(est, gen, phase="parallel_tp", tps=(2, 4)):
+    """Tensor parallelism one rank at a time on DPT_Large's first block (phase 17)."""
+    import copy
+
+    from depth_estimation_tpu_torch.device import full_f32
+    from depth_estimation_tpu_torch.ops import kernels
+    from depth_estimation_tpu_torch.parallel.mesh import shard_params
+
+    blk = est.model.pretrained.model.blocks[0]
+    prefix = "pretrained.model.blocks.0."
+    full = {k: v for k, v in est.model.state_dict().items() if k.startswith(prefix)}
+    x = torch.randn((1, 577, blk.norm1.normalized_shape[0]), generator=gen, device="cuda")
+    rows, per_path = {}, {}
+    with torch.inference_mode(), full_f32():
+        want = blk(x)
+        for tp in tps:
+            ranks = []
+            for r in range(tp):
+                local = copy.deepcopy(blk)
+                local.attn.shard_(tp, None)
+                local.mlp.shard_(tp, None)
+                shard = {k[len(prefix):]: v for k, v in shard_params(full, r, tp).items()}
+                shard["attn.proj.bias"] = torch.zeros_like(shard["attn.proj.bias"])  # added once, below
+                shard["mlp.fc2.bias"] = torch.zeros_like(shard["mlp.fc2.bias"])
+                local.load_state_dict(shard)
+                ranks.append(local)
+
+            def block():
+                h = x + sum(rank.attn(blk.norm1(x)) for rank in ranks) + blk.attn.proj.bias
+                return h + sum(rank.mlp(blk.norm2(h)) for rank in ranks) + blk.mlp.fc2.bias
+
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = block()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            rows[f"tp{tp}"] = held(phase, f"tp{tp}", max_scaled_err(got, want), 2e-5, counts,
+                                   {**DPT_PER_PROGRAM, "multi_head_attention": 1, "fused_preprocess": 0,
+                                    "resize_planes": 0}, tp)
+            rows[f"tp{tp}"]["local_heads"] = ranks[0].attn.num_heads
+            per_path[f"parallel_tp{tp}_block"] = counts
+    emit(phase, block="DPT_Large blocks.0", tokens=577, batch=1, dtype="float32", paths=rows)
+    return per_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -2232,13 +2392,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_evaluate(tmp)
 
+    # the parallel surface: a world of one over NCCL, then tensor parallelism one rank at a time
+    parallel_launches = run_parallel(est, frames8)
+    parallel_launches.update(run_parallel_tp(est, gen))
+    with full_f32():
+        att_tp = {h: check_attention(gen, 1, h, 577, torch.float32, 2e-5, 1e-4, timed=True) for h in (8, 4)}
+
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
                 "dpt_hybrid": family_launches["DPT_Hybrid"], "fused_iris": fused_launches,
                 "detection": detection_launches, "tflite": tflite_launches, "staged_iris": staged_launches,
                 "server": server_launches,
                 "fused_server": fused_server_launches, "multistream": multistream_launches,
-                "train": train_launches, "midas_train_step": midas_train_launches, **export_launches}
+                "train": train_launches, "midas_train_step": midas_train_launches, **export_launches,
+                **parallel_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2251,14 +2418,17 @@ def main():
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
               ("dpt_large", "dpt_hybrid", "fused_iris", "tflite", "staged_iris", "server", "fused_server",
                "multistream",
-               "train", "export_dpt_large", "export_dpt_large_b4", "export_fused"),
+               "train", "export_dpt_large", "export_dpt_large_b4", "export_fused", *parallel_launches),
               grad=grad_rows["multi_head_attention"],
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],
               library_kernel=att["library_kernel"], bf16_plain_ms=att16["plain_ms"],
               bf16_library_ms=att16["library_ms"], bf16_library_kernel=att16["library_kernel"],
               bf16_bound_ms=att16["bound_ms"], bf16_max_abs_err=att16["max_abs_err"],
               vit_b_12_heads={k: att12[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                                    "library_kernel", "bound_ms", "bound_by", "fma_bound_ms")}),
+                                                    "library_kernel", "bound_ms", "bound_by", "fma_bound_ms")},
+              tp_heads={f"{h}_heads": {k: att_tp[h][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                                   "bound_ms", "bound_by", "fma_bound_ms")}
+                        for h in att_tp}),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
               per_shape={**{key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}

@@ -61,9 +61,14 @@ def _set_benchmark(flag):
     torch.backends.cudnn.benchmark = flag
 
 
+def _set_deterministic(flag):
+    torch.backends.cudnn.deterministic = flag
+
+
 _NO_TF32 = _SharedFlags(lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32),
                        _set_tf32, (False, False))
 _TIMED_CONVS = _SharedFlags(lambda: torch.backends.cudnn.benchmark, _set_benchmark, True)
+_DETERMINISTIC_CONVS = _SharedFlags(lambda: torch.backends.cudnn.deterministic, _set_deterministic, True)
 
 
 def full_f32():
@@ -86,6 +91,15 @@ def conv_algorithms_by_timing():
     batch 4 than at batch 1. Timing changes which algorithm runs, not the
     type: f32 stays f32 under ``full_f32``."""
     return _TIMED_CONVS()
+
+
+def deterministic_convs():
+    """cuDNN restricted to deterministic algorithms (timing, under
+    ``conv_algorithms_by_timing``, chooses among those) while any thread is
+    inside, restored on the last exit (``_SharedFlags``). The train step runs
+    under it: some of cuDNN's backward algorithms add with atomics, so two
+    identical DPT_Large steps on an H100 gave different gradients."""
+    return _DETERMINISTIC_CONVS()
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:

@@ -14,11 +14,18 @@ in full f32 (``device.full_f32``); bfloat16 is an opt-in speed mode with no
 parity gate. In either type cuDNN picks each convolution's algorithm by timing
 (``device.conv_algorithms_by_timing``); the first call at a new shape pays
 for the search.
+
+Over a mesh of ranks (``parallel.mesh.make_mesh``), every rank calls the
+same method: ``predict_batch_sharded`` runs the rank's dp slice of a batch
+and all-gathers the maps over dp, ``predict_sharded`` runs one frame with
+the transformer matmuls tensor-parallel over tp. Both return the whole
+result on every rank.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import warnings
 from typing import Dict, Mapping, Optional, Tuple
@@ -119,6 +126,7 @@ class DepthEstimator:
              for k, v in params.items() if not _unread_hub_key(k)})
         self.model = model.to(self.dtype).eval()
         self._fn_cache: Dict[Tuple, object] = {}
+        self._mesh_params: Dict[Tuple, nn.Module] = {}
 
     # -- frame program --------------------------------------------------------
 
@@ -134,25 +142,28 @@ class DepthEstimator:
             imgs = torch.from_numpy(np.ascontiguousarray(imgs))
         return imgs.to(self.device, non_blocking=True).contiguous()
 
-    def _run(self, imgs: torch.Tensor, output: str = "f32") -> torch.Tensor:
+    def _run(self, imgs: torch.Tensor, output: str = "f32", model: Optional[nn.Module] = None) -> torch.Tensor:
         """u8 BGR (B, H, W, 3) on the device → (B, H, W) float32 depth, or
         with output='u8' the reference's wrap-around uint8 cast of it
         (depth_midas.py:83), cast by K3 itself, so the stream fetches a quarter
-        of the bytes."""
+        of the bytes. ``model``: the network to run, by default ``self.model``."""
         with torch.inference_mode(), self._numerics():
-            return self.depth_branch(imgs, output)
+            return self.depth_branch(imgs, output, model=model)
 
     def depth_branch(self, imgs: torch.Tensor, output: str = "f32", bgr: bool = True,
-                     params: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+                     params: Optional[Mapping[str, torch.Tensor]] = None,
+                     model: Optional[nn.Module] = None) -> torch.Tensor:
         """``_run``'s body, for a caller that has entered inference mode and
         ``_numerics()`` itself (the fused frame program): K2, the network, K3.
         ``bgr=False`` takes RGB frames. ``params``: a state dict that the
-        network runs on in place of its own (``torch.func.functional_call``)."""
+        network runs on in place of its own (``torch.func.functional_call``).
+        ``model``: another network to run (a rank's tp shard)."""
         in_hw = (int(imgs.shape[1]), int(imgs.shape[2]))
         cfg = self.preprocess_cfg
         net_hw = compute_resize_shape(*in_hw, cfg)
         x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=bgr).to(self.dtype)
-        pred = (self.model(x) if params is None else functional_call(self.model, params, (x,))).float()  # (B, h, w)
+        net = self.model if model is None else model
+        pred = (net(x) if params is None else functional_call(net, params, (x,))).float()  # (B, h, w)
         return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
 
     def frame_fn(self, in_hw: Tuple[int, int], bgr: bool = True, output: str = "f32"):
@@ -213,6 +224,43 @@ class DepthEstimator:
     def predict_batch(self, imgs: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) BGR uint8 → (B, H, W) float32, one frame program."""
         return self._batched_fn(imgs.shape[1:3])(imgs).cpu().numpy()
+
+    def _params_for_mesh(self, mesh, tensor_parallel: bool) -> nn.Module:
+        """The network this rank runs on ``mesh``: a copy cut to the rank's tp
+        shard (``parallel.mesh.tensor_parallel``) when asked for and the mesh
+        has a tp axis over 1, else the estimator's own (replicated). Cached
+        per (mesh, mode); a model with no transformer block is never cut."""
+        from depth_estimation_tpu_torch.parallel.mesh import axis_size, tensor_parallel as cut
+
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh given to an estimator on {self.device}")
+        tp = tensor_parallel and axis_size(mesh, "tp") > 1
+        key = (mesh, tp)
+        if key not in self._mesh_params:
+            self._mesh_params[key] = cut(copy.deepcopy(self.model), mesh) if tp else self.model
+        return self._mesh_params[key]
+
+    def predict_batch_sharded(self, imgs: np.ndarray, mesh, tensor_parallel: bool = True) -> np.ndarray:
+        """Batched inference over a mesh (JAX ``predict_batch_sharded``):
+        (B, H, W, 3) BGR u8, the same on every rank → (B, H, W) float32 on
+        every rank. Each rank runs K2, the network and K3 on its contiguous
+        dp slice (B must divide by dp), with the transformer matmuls
+        tensor-parallel over tp when the mesh has a tp axis over 1, and the
+        maps are all-gathered over dp."""
+        from depth_estimation_tpu_torch.parallel.mesh import batch_slice, gather_batch
+
+        model = self._params_for_mesh(mesh, tensor_parallel)
+        local = self._run(self._to_device(batch_slice(imgs, mesh)), model=model)
+        return gather_batch(local, mesh).cpu().numpy()
+
+    def predict_sharded(self, img: np.ndarray, mesh) -> np.ndarray:
+        """One frame with the transformer matmuls tensor-parallel over the
+        mesh's tp axis (JAX ``predict_sharded``): the frame replicated on
+        every rank, qkv/fc1 column-parallel and proj/fc2 row-parallel, two
+        all-reduces a block. (H, W) float32 on every rank. A conv-only model
+        runs replicated."""
+        model = self._params_for_mesh(mesh, tensor_parallel=True)
+        return self._run(self._to_device(np.asarray(img)[None]), model=model)[0].cpu().numpy()
 
     def _batched_fn(self, in_hw: Tuple[int, int], output: str = "f32"):
         """The frame program for (B, H, W, 3) batches at source size ``in_hw``:

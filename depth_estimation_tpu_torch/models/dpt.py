@@ -41,6 +41,10 @@ class DPTConfig:
     hybrid: bool = False
     img_size: int = 384
     non_negative: bool = True
+    # Per-block rematerialisation of the ViT trunk while a gradient is
+    # wanted (models/vit.py ``remat``): the forward and the state dict are
+    # unchanged, the backward recomputes each block from its input.
+    remat: bool = False
 
 
 DPT_LARGE = DPTConfig()
@@ -99,7 +103,7 @@ class DPT(nn.Module):
         levels = 2 if cfg.hybrid else 0  # pyramid levels that are the stem's conv maps
         self.pretrained = nn.Module()
         self.pretrained.model = ViT(C, cfg.depth, cfg.num_heads, img_size=cfg.img_size,
-                                    hooks=cfg.hooks[levels:], hybrid=cfg.hybrid)
+                                    hooks=cfg.hooks[levels:], hybrid=cfg.hybrid, remat=cfg.remat)
         for pos in range(levels, 4):
             self.pretrained.add_module(f"act_postprocess{pos + 1}",
                                        Reassemble(C, cfg.reassemble_channels[pos], pos))
@@ -118,9 +122,22 @@ class DPT(nn.Module):
             nn.ReLU() if cfg.non_negative else nn.Identity(),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, 3, H, W) normalized, H and W multiples of 32 → (B, H, W)."""
-        levels, hooked, (gh, gw) = self.pretrained.model(x)
+    def forward(self, x: torch.Tensor, hooked=None, grid=None, stem_layers=None) -> torch.Tensor:
+        """x: (B, 3, H, W) normalized, H and W multiples of 32 → (B, H, W).
+
+        ``hooked`` / ``grid``: trunk hook tokens and patch grid computed
+        outside (the pipelined trunk, ``parallel.pipeline.dpt_apply_pipelined``);
+        the ViT is skipped and only the decoder runs on them. DPT_Hybrid then
+        also needs ``stem_layers``, its stem's two stage maps."""
+        if hooked is None:
+            levels, hooked, grid = self.pretrained.model(x)
+        elif self.cfg.hybrid:
+            if stem_layers is None:
+                raise ValueError("hybrid hook injection needs stem_layers")
+            levels = list(stem_layers)
+        else:
+            levels = []
+        gh, gw = grid
         pre, s = self.pretrained, self.scratch
         layers = levels + [getattr(pre, f"act_postprocess{len(levels) + i + 1}")(t, gh, gw)
                            for i, t in enumerate(hooked)]

@@ -7,9 +7,11 @@ expand=True, non_negative=True): the encoder is ``pretrained.layer1-4``, the
 decoder ``scratch.*``, so the port's ``state_dict`` is the hub's (without
 ``num_batches_tracked`` and the dead ``scratch.refinenet4.resConfUnit1``).
 The fusion blocks upsample with align_corners=True, the head's
-``output_conv.2`` with align_corners=False. The depthwise, pointwise and
-decoder convs run as PyTorch gives them (cuDNN, or ATen's depthwise kernel):
-none of them was ever a Pallas kernel.
+``output_conv.2`` with align_corners=False; when a gradient is wanted the
+upsampling's backward is the interpolation matrices' adjoint
+(``_Upsample2x``), so a train step gives the same gradient every call. The
+depthwise, pointwise and decoder convs run as PyTorch gives them (cuDNN, or
+ATen's depthwise kernel): none of them was ever a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -21,11 +23,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from depth_estimation_tpu_torch.models.efficientnet_lite import EfficientNetLite3
+from depth_estimation_tpu_torch.ops.kernels.resize import resize_planes_backward_plain
 
 FEATURES = 64  # the hub's MidasNet_small
 
 
+class _Upsample2x(torch.autograd.Function):
+    """2× bilinear upsampling, ``F.interpolate``'s forward, with the adjoint
+    of its interpolation matrices as the backward: Whᵀ·G·Ww on every plane,
+    K3's backward (``resize_planes_backward_plain``, whose matrices stay on
+    the device). ATen's CUDA backward scatters with atomic adds, so two
+    identical train steps on the card gave different gradients; this one
+    gives the same every call."""
+
+    @staticmethod
+    def forward(ctx, x, align_corners):
+        h, w = x.shape[-2:]
+        ctx.hw, ctx.align_corners = (h, w), align_corners
+        return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b, c, h2, w2 = grad.shape
+        dx = resize_planes_backward_plain(grad.reshape(b * c, h2, w2), ctx.hw, "linear", ctx.align_corners)
+        return dx.reshape(b, c, *ctx.hw).to(grad.dtype), None
+
+
 def upsample2x(x: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Upsample2x.apply(x, align_corners)
     h, w = x.shape[-2:]
     return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=align_corners)
 

@@ -11,7 +11,13 @@ module names so a hub state dict loads as it is:
 * pre-LN blocks (LN eps 1e-6, qkv-bias attention, exact-GELU MLP), with the
   attention through kernel K1 (``ops.kernels.attention``),
 * the token tensors at the hook blocks returned before any final norm, as
-  DPT's reassemble stage consumes them.
+  DPT's reassemble stage consumes them,
+* tensor parallelism (``parallel.mesh.tensor_parallel``): ``Attention`` and
+  ``Mlp`` hold a rank's heads and hidden features after ``shard_``, with one
+  all-reduce after ``proj`` and one after ``fc2``,
+* per-block rematerialisation (``remat``): while a gradient is wanted, each
+  block runs under ``torch.utils.checkpoint``, so the backward recomputes its
+  activations from its input instead of storing them.
 """
 
 from __future__ import annotations
@@ -19,11 +25,27 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from depth_estimation_tpu_torch.models.resnetv2 import STAGE_CHANNELS, ResNetV2Stem
 from depth_estimation_tpu_torch.ops.kernels.attention import multi_head_attention
 from depth_estimation_tpu_torch.ops.resize import resize_bilinear
+from depth_estimation_tpu_torch.parallel.ops import copy_to_group, reduce_from_group
+
+
+def _like(linear: nn.Linear, in_features: int, out_features: int) -> nn.Linear:
+    w = linear.weight
+    return nn.Linear(in_features, out_features, device=w.device, dtype=w.dtype)
+
+
+def _row_parallel(linear: nn.Linear, x, group):
+    """``linear(x)`` when whole; cut over ``group``, the partial products
+    all-reduced and the whole bias added once."""
+    if group is None:
+        return linear(x)
+    return reduce_from_group(F.linear(x, linear.weight), group) + linear.bias
 
 
 class Attention(nn.Module):
@@ -32,13 +54,27 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp_group = None
+
+    def shard_(self, tp: int, group) -> None:
+        """Hold one tp rank's ``num_heads/tp`` heads: qkv column-parallel by
+        head, proj row-parallel (weights to be loaded from ``shard_params``)."""
+        if self.num_heads % tp:
+            raise ValueError(f"num_heads={self.num_heads} does not split over tp={tp}: "
+                             "the port shards attention by whole heads")
+        dim = self.proj.out_features
+        self.qkv, self.proj = _like(self.qkv, dim, 3 * dim // tp), _like(self.proj, dim // tp, dim)
+        self.num_heads //= tp
+        self.tp_group = group
 
     def forward(self, x):
-        B, N, C = x.shape
+        B, N, _ = x.shape
         H = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)  # (3, B, H, N, D)
+        qkv = self.qkv(copy_to_group(x, self.tp_group))
+        D = qkv.shape[-1] // (3 * H)
+        qkv = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # (3, B, H, N, D)
         out = multi_head_attention(qkv[0], qkv[1], qkv[2])
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return _row_parallel(self.proj, out.transpose(1, 2).reshape(B, N, H * D), self.tp_group)
 
 
 class Mlp(nn.Module):
@@ -47,9 +83,18 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.act = nn.GELU()  # exact erf form
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp_group = None
+
+    def shard_(self, tp: int, group) -> None:
+        """Hold one tp rank's ``hidden/tp`` features: fc1 column-parallel, fc2 row-parallel."""
+        dim, hidden = self.fc1.in_features, self.fc1.out_features
+        if hidden % tp:
+            raise ValueError(f"hidden={hidden} does not split over tp={tp}")
+        self.fc1, self.fc2 = _like(self.fc1, dim, hidden // tp), _like(self.fc2, hidden // tp, dim)
+        self.tp_group = group
 
     def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+        return _row_parallel(self.fc2, self.act(self.fc1(copy_to_group(x, self.tp_group))), self.tp_group)
 
 
 class Block(nn.Module):
@@ -113,25 +158,36 @@ class ViT(nn.Module):
 
     def __init__(self, embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  patch_size: int = 16, img_size: int = 384, hooks: Tuple[int, ...] = (5, 11, 17, 23),
-                 hybrid: bool = False):
+                 hybrid: bool = False, remat: bool = False):
         super().__init__()
         self.hooks = tuple(hooks)
+        self.remat = remat
         self.orig_grid = img_size // patch_size
         self.patch_embed = HybridEmbed(embed_dim) if hybrid else PatchEmbed(embed_dim, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.orig_grid ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads) for _ in range(depth))
 
-    def forward(self, x):
-        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw))."""
+    def embed(self, x):
+        """x: (B, 3, H, W) → ([conv maps], tokens (B, 1 + gh·gw, C) before the blocks, (gh, gw))."""
         patches, levels = self.patch_embed(x)
         B, C, gh, gw = patches.shape
         tokens = patches.flatten(2).transpose(1, 2)
         tokens = torch.cat([self.cls_token.expand(B, -1, -1), tokens], dim=1)
         tokens = tokens + resize_pos_embed(self.pos_embed, (gh, gw), self.orig_grid)
+        return levels, tokens, (gh, gw)
+
+    def run_block(self, i: int, tokens):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self.blocks[i], tokens, use_reentrant=False)
+        return self.blocks[i](tokens)
+
+    def forward(self, x):
+        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw))."""
+        levels, tokens, grid = self.embed(x)
         hooked = {}
-        for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens)
+        for i in range(len(self.blocks)):
+            tokens = self.run_block(i, tokens)
             if i in self.hooks:
                 hooked[i] = tokens
-        return levels, [hooked[i] for i in self.hooks], (gh, gw)
+        return levels, [hooked[i] for i in self.hooks], grid

@@ -7,7 +7,7 @@
   dataset's size), so the train step consumes raw u8 batches;
 * ``device_prefetch`` keeps ``size`` batches in flight: pinned host tensors
   copied with ``non_blocking=True``, so host decode and stacking overlap the
-  device's work.
+  device's work; over a mesh, each rank's dp slice only.
 
 Storage format: .npz files with ``image`` (H, W, 3) uint8 and ``disparity``
 (H, W) float32 — the (frame, inverse-depth) pairs the SSI loss expects
@@ -58,6 +58,11 @@ def synthetic_pairs(n: int, h: int, w: int, seed: int = 0) -> Iterator[Pair]:
         img = rng.integers(0, 256, (h, w, 3), np.uint8)
         disp = rng.random((h, w), np.float32) + 0.1
         yield img, disp
+
+
+class ShardedBatch(tuple):
+    """A batch already cut to this rank's dp slice and on its device
+    (``device_prefetch(mesh=)``); ``fit(mesh=)`` takes it as it is."""
 
 
 class _Reiterable:
@@ -114,18 +119,26 @@ def device_prefetch(it: Iterable, size: int = 2, mesh=None, device="cuda"):
     t+1..t+size are crossing to the device. Each pinned source is held until
     the consumer asks for the batch after its own.
 
+    With ``mesh`` (``parallel.mesh.make_mesh``), only the rank's dp slice of
+    each batch goes to the rank's device (``device`` is ignored), as a
+    ``ShardedBatch``.
+
     Returns a RE-ITERABLE: each ``iter()`` restarts ``it`` when it is one
     (e.g. :func:`batches`'s result), so fit()'s epoch restart works through
     the prefetcher."""
     if mesh is not None:
-        raise NotImplementedError("device_prefetch(mesh=) waits for the parallelism slice (ROADMAP queue A item 10)")
-    dev = resolve_device(device)
+        from depth_estimation_tpu_torch.parallel.mesh import batch_slice, mesh_device
+
+        dev, cut, wrap = mesh_device(mesh), (lambda a: batch_slice(a, mesh)), ShardedBatch
+    else:
+        dev, cut, wrap = resolve_device(device), (lambda a: a), tuple
 
     def put(batch):
-        host = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a for a in batch]
+        host = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+                for a in map(cut, batch)]
         if dev.type == "cuda":
             host = [h.pin_memory() for h in host]
-        return host, tuple(h.to(dev, non_blocking=True) for h in host)
+        return host, wrap(h.to(dev, non_blocking=True) for h in host)
 
     def gen():
         q: deque = deque()

@@ -3,8 +3,11 @@ checkpoints and resume.
 
 Checkpoints every ``ckpt_every`` steps into ``ckpt_dir/state`` and resumes
 from it: on the CPU a resumed run is bitwise the straight one
-(tests/test_torch_train_loop.py). ``mesh=`` (data and tensor parallelism)
-waits for the parallelism slice.
+(tests/test_torch_train_loop.py). With ``mesh=`` every rank of the mesh
+calls ``fit``: the model is cut to the rank's tp shard, each step takes the
+rank's dp slice of the batch, the checkpoint is the whole state in the
+single-device format (written by global rank 0) and a resume cuts it again
+(tests/test_torch_parallel_train.py).
 """
 
 from __future__ import annotations
@@ -14,11 +17,15 @@ from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from depth_estimation_tpu_torch.device import conv_algorithms_by_timing, full_f32, resolve_device
+from depth_estimation_tpu_torch.parallel.mesh import batch_slice, mesh_device
+from depth_estimation_tpu_torch.train.data import ShardedBatch
 from depth_estimation_tpu_torch.train.metrics import depth_metrics, metrics_to_host
-from depth_estimation_tpu_torch.train.step import TrainState, make_optimizer, make_train_step
+from depth_estimation_tpu_torch.train.step import (TrainState, init_state, load_sharded_train_state, make_train_step,
+                                                   save_sharded_train_state)
 from depth_estimation_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 
 
@@ -50,21 +57,28 @@ def fit(
     and at the end. ``eval_data`` (a re-iterable of (images, gt) batches)
     scores the model every ``eval_every`` steps and at the end with the
     aligned depth metrics (train/metrics.py), as ``(step, loss, metrics)``.
+
+    ``mesh``: a ``parallel.mesh.make_mesh`` mesh; every rank calls ``fit``
+    with the same global batches (or with ``device_prefetch(mesh=)``'s
+    slices), runs on the mesh's device (``device`` is ignored) and logs the
+    global loss; only global rank 0 prints. Evaluation runs the whole eval
+    batches on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("fit(mesh=) waits for the parallelism slice (ROADMAP queue A item 10)")
-    dev = resolve_device(device)
+    dev = mesh_device(mesh) if mesh is not None else resolve_device(device)
+    verbose = verbose and (mesh is None or dist.get_rank() == 0)
     with torch.no_grad():  # buffers moved outside any graph stay leaves
         model.to(dev)
-    state = TrainState(model, make_optimizer(model, lr=lr))
+    state = init_state(model, lr=lr, mesh=mesh)
+    save, load = (save_train_state, load_train_state) if mesh is None else (save_sharded_train_state,
+                                                                            load_sharded_train_state)
 
     ckpt_path = pathlib.Path(ckpt_dir) / "state" if ckpt_dir else None
     if ckpt_path is not None and ckpt_path.exists():
-        load_train_state(ckpt_path, state)
+        load(ckpt_path, state)
         if verbose:
             print(f"resumed from step {state.step}")
 
-    step_fn = make_train_step(model, state.optimizer, alpha=alpha, accum_steps=accum_steps)
+    step_fn = make_train_step(model, state.optimizer, alpha=alpha, accum_steps=accum_steps, mesh=mesh)
 
     def run_eval():
         sums, n = {}, 0
@@ -83,17 +97,20 @@ def fit(
     saved_at = None
     for i in range(state.step, steps):
         try:
-            images, gt = next(it)
+            batch = next(it)
         except StopIteration:
             it = iter(data)
             try:
-                images, gt = next(it)
+                batch = next(it)
             except StopIteration:
                 raise ValueError(
                     "dataset yielded nothing on restart — pass a "
                     "re-iterable (e.g. train/data.py::batches / "
                     "device_prefetch), not a bare generator"
                 ) from None
+        images, gt = batch
+        if mesh is not None and not isinstance(batch, ShardedBatch):
+            images, gt = batch_slice(images, mesh), batch_slice(gt, mesh)
         loss = step_fn(_on(images, dev), _on(gt, dev))
         state.step = i + 1
         if (i + 1) % log_every == 0 or i + 1 == steps:
@@ -108,10 +125,10 @@ def fit(
                 print(f"step {i + 1}/{steps} eval abs_rel {m['abs_rel']:.4f} "
                       f"d1 {m['d1']:.3f} rmse {m['rmse']:.4f}")
         if ckpt_path is not None and (i + 1) % ckpt_every == 0:
-            save_train_state(ckpt_path, state)
+            save(ckpt_path, state)
             saved_at = state.step
     if ckpt_path is not None and saved_at != state.step:
-        save_train_state(ckpt_path, state)
+        save(ckpt_path, state)
     return state, history
 
 

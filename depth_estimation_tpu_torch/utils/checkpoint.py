@@ -11,6 +11,9 @@ when no weights are given.
 
 ``save_train_state`` / ``load_train_state`` keep the model's state dict, the
 optimizer's and the step in one file (a temporary file, then a rename).
+``write_train_state`` / ``read_train_state`` are the file alone, for a
+state kept elsewhere (``train.step.save_sharded_train_state`` writes a
+state sharded over a mesh, gathered, in the same format).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import hashlib
 import json
 import os
 import pathlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,11 +110,24 @@ def import_torch_checkpoint(pt_path, model_type: str) -> Dict[str, torch.Tensor]
 
 # -- training state (checkpoint/resume) ---------------------------------------
 
+def write_train_state(path, model_sd: Dict, optimizer_sd: Dict, step: int) -> None:
+    """Write a model's state dict, its optimizer's and the step to a
+    temporary file, then rename it to ``path``."""
+    _save_atomic({"model": model_sd, "optimizer": optimizer_sd, "step": int(step)}, pathlib.Path(path))
+
+
+def read_train_state(path) -> Tuple[Dict, Dict, int]:
+    """``write_train_state``'s (model state dict, optimizer state dict, step),
+    read to the host."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return saved["model"], saved["optimizer"], int(saved["step"])
+
+
 def save_train_state(path, state) -> None:
-    """Save a ``train.step.TrainState``: the model's state dict, the
-    optimizer's and the step, written to a temporary file and renamed."""
-    _save_atomic({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                  "step": int(state.step)}, pathlib.Path(path))
+    """Save a ``train.step.TrainState`` on one device (``write_train_state``)."""
+    if state.mesh is not None:
+        raise ValueError("a state sharded over a mesh is saved by train.step.save_sharded_train_state")
+    write_train_state(path, state.model.state_dict(), state.optimizer.state_dict(), state.step)
 
 
 def load_train_state(path, state):
@@ -119,8 +135,10 @@ def load_train_state(path, state):
     optimizer layout), in place; returns ``state``. The file is read to the
     host: the loads copy each tensor to its parameter's device, and the
     optimizer keeps its step counts on the host, as it made them."""
-    saved = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
-    state.step = int(saved["step"])
+    if state.mesh is not None:
+        raise ValueError("a state sharded over a mesh is loaded by train.step.load_sharded_train_state")
+    model_sd, optimizer_sd, step = read_train_state(path)
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(optimizer_sd)
+    state.step = step
     return state

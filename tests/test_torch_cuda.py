@@ -116,6 +116,22 @@ def test_attention_kernel_at_vit_b_heads(cuda, gen, b, dtype, tol):
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads,tp", [(16, 2), (16, 4), (12, 2), (12, 4)],
+                         ids=["dpt_large_tp2", "dpt_large_tp4", "dpt_hybrid_tp2", "dpt_hybrid_tp4"])
+def test_attention_kernel_at_tensor_parallel_heads(cuda, gen, heads, tp, dtype, tol):
+    """One tensor-parallel rank's heads (``parallel/mesh.py``): H/tp heads of
+    64 as views of its fused qkv of 3·C/tp columns, at 577 tokens."""
+    h = heads // tp
+    qkv = torch.randn((1, 577, 3, h, 64), generator=gen, device=cuda).to(dtype).permute(2, 0, 3, 1, 4)
+    before = tatt.multi_head_attention.launches
+    got = tatt.multi_head_attention(qkv[0], qkv[1], qkv[2])
+    assert tatt.multi_head_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, h, 577, 64)
+    ref = tatt.attention_plain(qkv[0], qkv[1], qkv[2])
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
+
+
 def test_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -628,6 +644,37 @@ def test_operator_opcheck_on_cuda(cuda, gen, case):
                      for a in args)
     result = torch.library.opcheck(op.default, args)
     assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_train_step_gradient_is_the_same_every_call(cuda):
+    """Two train steps of a tiny DPT (64-wide heads) from the same weights on
+    the same u8 batch give bitwise equal gradients (lr 0, so the weights do
+    not move): cuDNN's deterministic algorithms and the upsampling's matrix
+    backward (ATen's bilinear backward and some cuDNN backward algorithms
+    add with atomics)."""
+    from depth_estimation_tpu_torch.models.dpt import DPT, DPTConfig
+    from depth_estimation_tpu_torch.train.data import TrainingApply
+    from depth_estimation_tpu_torch.train.step import make_optimizer, make_train_step, trainable_tensors
+
+    cfg = DPTConfig(embed_dim=128, depth=4, num_heads=2, hooks=(0, 1, 2, 3), reassemble_channels=(16, 32, 64, 64),
+                    features=32, img_size=64, non_negative=False)
+    g = torch.Generator().manual_seed(0)
+    model = DPT(cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    model.to(cuda)
+    step = make_train_step(TrainingApply(model, DPT_PREPROCESS), make_optimizer(model, lr=0.0, weight_decay=0.0))
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 240, 320, 3), np.uint8)).to(cuda)
+    gt = torch.from_numpy(rng.random((2, 240, 320), np.float32) + 0.5).to(cuda)
+    grads = []
+    for _ in range(2):
+        loss = step(imgs, gt)
+        grads.append({k: t.grad.clone() for k, t in trainable_tensors(model).items()})
+    assert torch.isfinite(loss)
+    assert all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]), \
+        [k for k in grads[0] if not torch.equal(grads[0][k], grads[1][k])][:5]
 
 
 def test_exported_tiny_dpt_round_trip_on_the_card(cuda, tmp_path):

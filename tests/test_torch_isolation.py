@@ -38,7 +38,7 @@ def _imported_roots(path):
 def test_no_forbidden_import_statements():
     files = sorted((ROOT / "depth_estimation_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "k4_breakdown.py", ROOT / "tools" / "train_grad_precision.py",
-        ROOT / "tools" / "detection_times.py"]
+        ROOT / "tools" / "detection_times.py", ROOT / "tools" / "train_determinism.py"]
     bad = {str(f.relative_to(ROOT)): r for f in files for r in _imported_roots(f) if r in FORBIDDEN}
     assert not bad, bad
 

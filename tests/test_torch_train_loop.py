@@ -140,7 +140,8 @@ def test_fit_midas_v21_tiny_learns():
 def test_fit_from_raw_u8_batches_restarts_the_dataset():
     """u8 batches → device_prefetch → fit with TrainingApply (K2, a tiny DPT,
     K3 on their plain versions); 5 steps over a 2-batch epoch restart it
-    twice; a bare generator fails loudly on restart; mesh= is refused."""
+    twice; a bare generator fails loudly on restart. (fit(mesh=) and
+    device_prefetch(mesh=): tests/test_torch_parallel_train.py.)"""
     model = DPT(DPT_TINY)
     pre = PreprocessConfig(target_height=64, target_width=64, keep_aspect_ratio=False, ensure_multiple_of=32)
     apply = tdata.TrainingApply(model, pre, net_hw=(64, 64))
@@ -153,10 +154,6 @@ def test_fit_from_raw_u8_batches_restarts_the_dataset():
 
     with pytest.raises(ValueError, match="re-iterable"):
         fit(apply, one_shot(), steps=5, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        fit(apply, data, steps=1, mesh=object(), verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        tdata.device_prefetch(data, mesh=object(), device="cpu")
 
 
 # -- data helpers: the JAX package's arrays ------------------------------------

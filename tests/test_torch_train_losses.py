@@ -189,6 +189,36 @@ def test_resize_backward_plain_is_the_transpose():
         torch.testing.assert_close(trsz.resize_planes_backward_plain(up, in_hw), want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_upsample2x_backward_is_the_matrix_adjoint(align_corners):
+    """The decoders' 2× bilinear upsampling: with a gradient wanted it is
+    ``_Upsample2x`` (``F.interpolate``'s forward, bitwise; the backward
+    Whᵀ·G·Ww, which on the card is the same every call where ATen's adds
+    with atomics), equal to autograd of ``F.interpolate`` in float32 and
+    float64; without one, ``F.interpolate`` itself."""
+    import torch.nn.functional as F
+
+    from depth_estimation_tpu_torch.models.midas_small import upsample2x
+
+    g = torch.Generator().manual_seed(3)
+    # ATen computes align_corners=True's source coordinates in the input's
+    # type, the matrices in float64 rounded to float32: a few f32 ulps apart
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-6)):
+        x = torch.randn((2, 3, 9, 12), generator=g, dtype=dtype)
+        up = torch.randn((2, 3, 18, 24), generator=g, dtype=dtype)
+        want_y = F.interpolate(x, size=(18, 24), mode="bilinear", align_corners=align_corners)
+        (want,) = _autograd(lambda t: F.interpolate(t, size=(18, 24), mode="bilinear",
+                                                    align_corners=align_corners), x, upstream=up)
+        leaf = x.clone().requires_grad_()
+        y = upsample2x(leaf, align_corners)
+        assert type(y.grad_fn).__name__ == "_Upsample2xBackward" and torch.equal(y.detach(), want_y)
+        (got,) = torch.autograd.grad(y, leaf, up)
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        with torch.no_grad():
+            assert upsample2x(leaf, align_corners).grad_fn is None
+            assert torch.equal(upsample2x(leaf, align_corners), want_y)
+
+
 def test_grouped_conv_backward_plain_pieces():
     g = torch.Generator().manual_seed(2)
     x = torch.randn((2, 16, 7, 9), generator=g)
