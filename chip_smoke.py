@@ -173,12 +173,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (max-scaled 2e-5); K1 checked and timed at (1, 8, 577, 64) and (1, 4,
    577, 64). Each path prints its max-scaled error and launches.
 
+18. parallel_sp — sequence parallelism and spatial partitioning at full
+   width. (a) A world of one over NCCL: ``predict_spatial`` of MiDaS v2.1
+   and of MiDaS_small on a 480×640 frame against ``predict`` (the 1e-3
+   gate; K2 1, K3 1, K4 30 / 0), and DPT_Large's frame with its trunk
+   ``sequence_parallel`` over an sp axis of one (the token scatter, K/V and
+   hook gathers over NCCL) against ``predict`` (1e-5; K1 24, K2 1, K3 1).
+   (b) One rank at a time, the exchanges done by slicing the whole tensor
+   and the compute half on the card: DPT_Large's first block at 384×512
+   (769 tokens, f32) cut for sp 2 and 4, each rank's ``Block.forward`` on
+   its 385 / 193 (… 192) tokens with K/V of all 769 (K1 at (1, 16, 385, 64)
+   × 769 and (1, 16, 193, 64) × 769, each launch held against its plain
+   version at 2e-5), the concatenation against the whole block (max-scaled
+   2e-5); MiDaS v2.1's frame program at 480×640 cut into 2 and 4 row slabs
+   (``parallel.spatial.RowWorld.local``): each slab through K2's row window,
+   the network with K4 on halo'd slabs, and K3's row window, the assembled
+   map against ``predict`` (the 1e-3 gate; K2 n, K3 n, K4 30·n). Then K1
+   checked and timed at the two sp shapes in f32 (3xTF32 bound) and bf16
+   beside SDPA, and K2's and K3's window launches of a rank of 2 and of 4
+   checked against their plain versions and the whole-frame launch sliced,
+   and timed.
+
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
 fused, detection, tflite, staged, server, fused_server, multistream, train (8
 steps of ``fit``) and midas_train_step paths', the loaded programs'
 (``export_*``) and the parallel paths' (``parallel_*``), the backward under
-``grad``, K1 at its tp shapes under ``tp_heads``; K2's
+``grad``, K1 at its tp shapes under ``tp_heads`` and at its sp shapes
+under ``sp_shapes``, K2's and K3's window launches under ``windows``; K2's
 and K3's for each network input under ``per_shape``, with K2's linear
 route's shapes),
 the ``nvidia-smi`` line, and last
@@ -269,21 +291,28 @@ def bound_ms(nbytes, flops, peak=PEAK_FLOPS[torch.float32]):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_attention(gen, b, h, n, dtype, atol, rtol, timed):
+def check_attention(gen, b, h, n, dtype, atol, rtol, timed, nk=None):
+    """K1 at (b, h, n, 64); with ``nk``, n queries against nk keys, as a
+    sequence-parallel rank runs it: q a view of its local fused projection,
+    k and v views of the gathered K/V."""
     from depth_estimation_tpu_torch.ops.kernels.attention import attention_plain, multi_head_attention
 
     d = 64
     # strided q, k, v views of one fused projection, as the ViT produces them
     qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]
+    if nk is not None:
+        kv = torch.randn((b, nk, 2, h, d), generator=gen, device="cuda").to(dtype).permute(2, 0, 3, 1, 4)
+        k, v = kv[0], kv[1]
+    keys = k.shape[2]
     got, ref = multi_head_attention(q, k, v), attention_plain(q, k, v)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
     check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
-          f"attention {dtype} {(b, h, n, d)}: max abs err {err} over atol {atol} rtol {rtol}")
-    row = {"shape": [b, h, n, d], "dtype": str(dtype), "max_abs_err": err, "atol": atol, "rtol": rtol}
+          f"attention {dtype} {(b, h, n, d)} x {keys} keys: max abs err {err} over atol {atol} rtol {rtol}")
+    row = {"shape": [b, h, n, d], "keys": keys, "dtype": str(dtype), "max_abs_err": err, "atol": atol, "rtol": rtol}
     if timed:
-        nbytes, flops = 4 * b * h * n * d * (torch.finfo(dtype).bits // 8), 4 * b * h * n * n * d
+        nbytes, flops = 2 * b * h * (n + keys) * d * (torch.finfo(dtype).bits // 8), 4 * b * h * n * keys * d
         if dtype == torch.float32:  # three TF32 products for each f32 one
             bnd, by = bound_ms(nbytes, 3 * flops, PEAK_TF32)
             row.update(bound_peak="3xTF32 tensor cores, 495 TFLOP/s",
@@ -2090,12 +2119,22 @@ def held(phase, path, err, tol, counts, per_call, calls=1):
     return {"max_scaled_err": err, "tol": tol, "launches": counts}
 
 
+def counted(call):
+    """``call()`` and the kernels' launches during it, the counts zeroed just before."""
+    from depth_estimation_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
 def run_parallel(est, frames8, phase="parallel", batch=2, src_hw=(240, 320)):
     """The world-of-one paths (see the module docstring, phase 17)."""
     import torch.distributed as dist
 
     from depth_estimation_tpu_torch.estimator import DepthEstimator
-    from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
     from depth_estimation_tpu_torch.parallel.mesh import make_mesh
     from depth_estimation_tpu_torch.parallel.pipeline import dpt_apply_pipelined
@@ -2104,14 +2143,6 @@ def run_parallel(est, frames8, phase="parallel", batch=2, src_hw=(240, 320)):
 
     t_phase = time.perf_counter()
     rows, per_path = {}, {}
-
-    def counted(call):
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        out = call()
-        torch.cuda.synchronize()
-        return out, kernels.launch_counts()
-
     frames = frames8.cpu().numpy()
     midas = DepthEstimator("MiDaS", seed=0, device="cuda", verbose=False)
     # one batch a pass: a resumed fit restarts the data, and its step 2 must see the straight run's batch
@@ -2217,6 +2248,146 @@ def run_parallel_tp(est, gen, phase="parallel_tp", tps=(2, 4)):
     return per_path
 
 
+SMALL_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+K1_ONLY = {"multi_head_attention": 1, "fused_preprocess": 0, "resize_planes": 0, "grouped_conv3x3": 0}
+SP_TOKENS = 769  # DPT_Large at 384×512
+
+
+def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
+    """Sequence parallelism and spatial partitioning (the module docstring, phase 18)."""
+    import copy
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from depth_estimation_tpu_torch.device import full_f32
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.models import vit as vit_module
+    from depth_estimation_tpu_torch.ops.kernels.attention import attention_plain
+    from depth_estimation_tpu_torch.parallel.mesh import make_mesh, sequence_parallel
+    from depth_estimation_tpu_torch.parallel.ops import SeqShards, token_counts
+    from depth_estimation_tpu_torch.parallel.spatial import RowWorld, spatial_depth
+
+    t_phase = time.perf_counter()
+    rows = {}
+    frame = frames8[0].cpu().numpy()
+    convs = {"midas": (DepthEstimator("MiDaS", seed=0, device="cuda", verbose=False), MIDAS_PER_PROGRAM),
+             "midas_small": (DepthEstimator("MiDaS_small", seed=0, device="cuda", verbose=False), SMALL_PER_PROGRAM)}
+    wants = {key: e.predict(frame) for key, (e, _) in convs.items()}
+    want_dpt = est.predict(frame)
+
+    # (a) a world of one over NCCL
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_mesh(1, device="cuda")
+            for key, (e, per_program) in convs.items():
+                got, counts = counted(lambda: e.predict_spatial(frame, mesh))
+                rows[f"{key}_predict_spatial"] = held(phase, f"{key}_predict_spatial",
+                                                      max_scaled_err(got, wants[key]), 1e-3, counts, per_program)
+            mesh_sp = init_device_mesh("cuda", (1, 1, 1, 1), mesh_dim_names=("dp", "pp", "sp", "tp"))
+            model = sequence_parallel(copy.deepcopy(est.model), mesh_sp)
+            got, counts = counted(lambda: est._run(est._to_device(frame[None]), model=model)[0].cpu().numpy())
+            rows["sp1_dpt_large"] = held(phase, "sp1_dpt_large", max_scaled_err(got, want_dpt), 1e-5, counts,
+                                         DPT_PER_PROGRAM)
+            del model
+        finally:
+            dist.destroy_process_group()
+
+    # (b) one rank at a time: the exchanges by slicing the whole tensor, the compute on the card
+    blk = est.model.pretrained.model.blocks[0]
+    heads = blk.attn.num_heads
+    x = torch.randn((1, SP_TOKENS, blk.norm1.normalized_shape[0]), generator=gen, device="cuda")
+    gather_kv, attention = vit_module.gather_kv, vit_module.multi_head_attention
+    launches = []
+
+    def recorded(q, k, v):
+        out = attention(q, k, v)
+        launches.append((q, k, v, out))
+        return out
+
+    try:
+        with torch.inference_mode(), full_f32():
+            want = blk(x)
+            qkv = blk.attn.qkv(blk.norm1(x)).reshape(1, SP_TOKENS, 3, heads, -1)
+            whole_kv = qkv[:, :, 1:].contiguous()  # every rank's K/V, as the gather would give them
+            vit_module.gather_kv = lambda local, seq: whole_kv
+            vit_module.multi_head_attention = recorded
+            for sp in sps:
+                counts_sp = token_counts(SP_TOKENS, sp)
+                starts = np.cumsum((0,) + counts_sp)
+                launches.clear()
+                got, counts = counted(lambda: torch.cat(
+                    [blk(x[:, starts[r]:starts[r + 1]], SeqShards(None, sp, r, counts_sp)) for r in range(sp)], 1))
+                k1_errs = [(o - attention_plain(q, k, v)).abs().max().item() for q, k, v, o in launches]
+                check(max(k1_errs) <= 2e-5, f"{phase} sp{sp}: K1 launches off their plain versions by {k1_errs}")
+                rows[f"sp{sp}_block"] = held(phase, f"sp{sp}_block", max_scaled_err(got, want), 2e-5, counts, K1_ONLY,
+                                             sp)
+                rows[f"sp{sp}_block"].update(tokens=list(counts_sp), k1_max_abs_err=max(k1_errs),
+                                             k1_shapes=[[list(q.shape), k.shape[2]] for q, k, _, _ in launches])
+    finally:
+        vit_module.gather_kv, vit_module.multi_head_attention = gather_kv, attention
+
+    midas = convs["midas"][0]
+    for n in sps:
+        def slabs():
+            with torch.inference_mode(), midas._numerics():
+                return spatial_depth(RowWorld.local(n), midas, midas._to_device(frame[None]))[0].cpu().numpy()
+
+        got, counts = counted(slabs)
+        rows[f"midas_{n}_slabs"] = held(phase, f"midas_{n}_slabs", max_scaled_err(got, wants["midas"]), 1e-3, counts,
+                                        MIDAS_PER_PROGRAM, n)
+    del convs, midas
+    torch.cuda.empty_cache()
+    emit(phase, world_size=1, backend="nccl", paths=rows, seconds=time.perf_counter() - t_phase)
+    return {f"parallel_sp_{k}": v["launches"] for k, v in rows.items()}
+
+
+def check_window(frames, gen, kernel, n, rank=1):
+    """K2 (MiDaS: 480×640 → 3×192×256) or K3 (192×256 → 480×640) on rank
+    ``rank``'s output rows of ``n``, from the source rows they read: held
+    against the plain version on the same window (3e-5) and against the
+    whole-frame launch's rows, and timed."""
+    from depth_estimation_tpu_torch.config import SMALL_PREPROCESS as cfg
+    from depth_estimation_tpu_torch.ops.kernels.resize import (fused_preprocess, preprocess_plain, resize_planes,
+                                                               resize_planes_plain, tiling, window_rows)
+    from depth_estimation_tpu_torch.parallel.spatial import row_bounds
+
+    in_hw, out_hw = ((480, 640), (192, 256)) if kernel == "preprocess" else ((192, 256), (480, 640))
+    r0, r1 = row_bounds(out_hw[0], n)[rank]
+    lo, hi = window_rows(in_hw[0], out_hw[0], r0, r1)
+    win = (r0, r1, in_hw[0], lo)
+    if kernel == "preprocess":
+        src = frames[:1]
+        slab = src[:, lo:hi].contiguous()
+        launch = lambda: fused_preprocess(slab, out_hw, cfg.mean, cfg.std, window=win)  # noqa: E731
+        plain = lambda: preprocess_plain(slab, out_hw, cfg.mean, cfg.std, window=win)  # noqa: E731
+        whole = fused_preprocess(src, out_hw, cfg.mean, cfg.std)[:, :, r0:r1]
+        flops_per_out, in_bytes = 2 * 16 + 2, slab.numel()
+    else:
+        src = torch.rand((1, *in_hw), generator=gen, device="cuda")
+        slab = src[:, lo:hi].contiguous()
+        launch = lambda: resize_planes(slab, out_hw, window=win)  # noqa: E731
+        plain = lambda: resize_planes_plain(slab, out_hw, window=win)  # noqa: E731
+        whole = resize_planes(src, out_hw)[:, r0:r1]
+        flops_per_out, in_bytes = 2 * 16, slab.numel() * 4
+    got, ref = launch(), plain()
+    torch.cuda.synchronize()
+    err, err_whole = (got - ref).abs().max().item(), (got - whole).abs().max().item()
+    check(got.shape == ref.shape == whole.shape and err <= 3e-5 and err_whole <= 3e-5,
+          f"{kernel} window {win}: {tuple(got.shape)} off its plain version by {err}, the whole launch by {err_whole}")
+    taps = ((r1 - r0) + out_hw[1]) * 4 * 8
+    bnd, by = bound_ms(in_bytes + got.numel() * 4 + taps, got.numel() * flops_per_out)
+    row = {"name": kernel, "ranks": n, "rank": rank, "out_rows": [r0, r1], "source_rows": [lo, hi],
+           "in": list(slab.shape), "out": list(got.shape), "max_abs_err": err, "max_abs_diff_whole_launch": err_whole,
+           "atol": 3e-5, "tiling": tiling(in_hw, out_hw, 1, sm_count(), kernel, "cubic", False, (r0, r1, lo)),
+           "ms": time_ms(launch), "plain_ms": time_ms(plain), "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    emit("kernel", window=True, **row)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -2226,6 +2397,7 @@ def main():
     from depth_estimation_tpu_torch.estimator import DepthEstimator
     from depth_estimation_tpu_torch.ops.kernels import build
     from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
+    from depth_estimation_tpu_torch.parallel.ops import token_counts
     from depth_estimation_tpu_torch.runtime.video import SyntheticSource
     from depth_estimation_tpu_torch.utils import checkpoint
 
@@ -2397,6 +2569,15 @@ def main():
     parallel_launches.update(run_parallel_tp(est, gen))
     with full_f32():
         att_tp = {h: check_attention(gen, 1, h, 577, torch.float32, 2e-5, 1e-4, timed=True) for h in (8, 4)}
+    # sequence parallelism and spatial partitioning, then K1 at the sp shapes and K2/K3 on row windows
+    parallel_launches.update(run_parallel_sp(est, gen, frames8))
+    with full_f32():
+        att_sp = {f"sp{sp}_{name}": check_attention(gen, 1, 16, token_counts(SP_TOKENS, sp)[0], dtype, atol, rtol,
+                                                    timed=True, nk=SP_TOKENS)
+                  for sp in (2, 4) for name, dtype, atol, rtol in (("f32", torch.float32, 2e-5, 1e-4),
+                                                                   ("bf16", torch.bfloat16, 1e-2, 1e-2))}
+        windows = {k: {f"rank1_of_{n}": check_window(frames, gen, k, n) for n in (2, 4)}
+                   for k in ("preprocess", "resize")}
 
     path = {"dpt_384x512": launches, "midas_192x256": midas_launches}  # per-frame streams' launches
     per_path = {"dpt_large": launches, "midas": midas_launches, "midas_small": family_launches["MiDaS_small"],
@@ -2428,7 +2609,11 @@ def main():
                                                     "library_kernel", "bound_ms", "bound_by", "fma_bound_ms")},
               tp_heads={f"{h}_heads": {k: att_tp[h][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                                    "bound_ms", "bound_by", "fma_bound_ms")}
-                        for h in att_tp}),
+                        for h in att_tp},
+              sp_shapes={key: {k: row.get(k) for k in ("shape", "keys", "dtype", "max_abs_err", "ms", "plain_ms",
+                                                       "library_ms", "library_kernel", "bound_ms", "bound_by",
+                                                       "fma_bound_ms")}
+                         for key, row in att_sp.items()}),
         entry("fused_preprocess", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:44", pre["dpt_384x512"], launches, per_path,
               per_shape={**{key: {"launches": path[key]["fused_preprocess"], **{k: pre[key][k] for k in K23_KEYS}}
@@ -2437,13 +2622,15 @@ def main():
                          # (per_path.fused_iris: 3 a frame) and a detection program (per_path.detection: 2 a
                          # frame), and of 224² a pose detector stage (per_path.tflite: 3 + 2 + 1)
                          **{key: {"method": "linear", **{k: pre_linear[key][k] for k in K23_KEYS}}
-                            for key in DETECTOR_INPUTS}}),
+                            for key in DETECTOR_INPUTS}},
+              windows=windows["preprocess"]),
         entry("resize_planes", "depth_estimation_tpu_torch/csrc/resize.cu",
               "depth_estimation_tpu/ops/pallas/resize.py:102", rsz["dpt_384x512"], launches, per_path,
               grad=grad_rows["resize_planes"],
               **{k: rsz["dpt_384x512"][k] for k in K3_U8_KEYS},
               per_shape={key: {"launches": path[key]["resize_planes"],
-                               **{k: rsz[key][k] for k in K23_KEYS + K3_U8_KEYS}} for key in resize_shapes}),
+                               **{k: rsz[key][k] for k in K23_KEYS + K3_U8_KEYS}} for key in resize_shapes},
+              windows=windows["resize"]),
         entry("grouped_conv3x3", "depth_estimation_tpu_torch/csrc/grouped_conv.cu",
               "depth_estimation_tpu/ops/pallas/grouped_conv.py:105", gconv["layer3"], midas_launches, per_path,
               grad=grad_rows["grouped_conv3x3"],

@@ -1,4 +1,4 @@
-// K1: softmax(Q Kᵀ / sqrt(D)) V over (B, H, N, D) with D = 64.
+// K1: softmax(Q Kᵀ / sqrt(D)) V with Q (B, H, Nq, D), K and V (B, H, Nk, D), D = 64.
 //
 // Replaces depth_estimation_tpu/ops/pallas/attention.py::_flash_kernel (the
 // Pallas flash attention inside each ViT block of DPT_Large). Two routes,
@@ -50,8 +50,8 @@
 //   cp.async and the 16-byte Q loads need 16-byte aligned addresses: the
 // wrapper requires 16-byte aligned q, k, v pointers and (batch, head, row)
 // strides that are multiples of 4 elements, and raises otherwise. Key rows
-// >= N are zero-filled by the copy (0 source bytes) and masked to -inf
-// before the row max; Q rows >= N are loaded as zeros and never stored.
+// >= Nk are zero-filled by the copy (0 source bytes) and masked to -inf
+// before the row max; Q rows >= Nq are loaded as zeros and never stored.
 //
 // bf16: tensor cores, mma.sync.m16n8k16 .bf16 with f32 accumulation
 // (attention_bf16_kernel), bound by 2.42 GFLOP at the 989 TFLOP/s bf16 rate.
@@ -96,6 +96,14 @@
 //
 // Both read q, k and v through their (batch, head, row) strides, so the
 // ViT's fused qkv projection is consumed without a copy.
+//
+// Key length. The query length Nq sets the grid; the key walk and its mask
+// run to the key length Nk, which may differ (the sequence-parallel ViT's
+// local queries against the gathered keys, parallel/ops.py), as the TPU
+// kernel's kv_len mask does over its whole key block. Every key tile starts
+// below Nk (tiles = ceil(Nk / tile)), so every tile holds at least one live
+// key for every row: the running max stays finite and the sum positive. The
+// last tile's rows at or past Nk are zero-filled by the copies and masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,7 +196,8 @@ __device__ __forceinline__ void split_trunc(float x, uint32_t& hi, uint32_t& lo)
 
 __global__ void __launch_bounds__(kThreads, 2)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ o, int heads, int n, Strides qs, Strides ks, Strides vs, float scale) {
+                     float* __restrict__ o, int heads, int nq, int nk, Strides qs, Strides ks, Strides vs,
+                     float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // K buffers 0, 1, then V buffers 0, 1
 
@@ -199,11 +208,11 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
   const int r0 = blockIdx.x * kTile + 16 * (threadIdx.x / 32);  // this warp's first Q row
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  const int tiles = (n + kTile - 1) / kTile;
+  const int tiles = (nk + kTile - 1) / kTile;
   const float scale_log2 = scale * 1.4426950408889634f;  // the softmax runs in base 2, on exp2f
 
-  stage_tile(smem, kLdK, kb, ks.n, 0, n);
-  stage_tile(smem + 2 * kTile * kLdK, kLd, vb, vs.n, 0, n);
+  stage_tile(smem, kLdK, kb, ks.n, 0, nk);
+  stage_tile(smem + 2 * kTile * kLdK, kLd, vb, vs.n, 0, nk);
   cp_async_commit();
 
   // Q fragments of this warp's 16 rows, all 8 k-chunks of D (d permuted as in the note), as hi/lo pairs
@@ -215,7 +224,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + g + 8 * r;
-        const float4 x = row < n ? *reinterpret_cast<const float4*>(qb + row * qs.n + 16 * c + 4 * t)
+        const float4 x = row < nq ? *reinterpret_cast<const float4*>(qb + row * qs.n + 16 * c + 4 * t)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
         split(x.x, q_hi[2 * c][r], q_lo[2 * c][r]);
         split(x.y, q_hi[2 * c][2 + r], q_lo[2 * c][2 + r]);
@@ -235,8 +244,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     const int k0 = tile * kTile;
     if (tile + 1 < tiles) {  // the buffer it fills was last read in tile - 1, before its closing barrier
       const int nb = (tile + 1) & 1;
-      stage_tile(smem + nb * kTile * kLdK, kLdK, kb, ks.n, k0 + kTile, n);
-      stage_tile(smem + 2 * kTile * kLdK + nb * kTileFloats, kLd, vb, vs.n, k0 + kTile, n);
+      stage_tile(smem + nb * kTile * kLdK, kLdK, kb, ks.n, k0 + kTile, nk);
+      stage_tile(smem + 2 * kTile * kLdK + nb * kTileFloats, kLd, vb, vs.n, k0 + kTile, nk);
     }
     cp_async_commit();  // possibly empty, so that one group is always left pending
     cp_async_wait_1();
@@ -270,13 +279,13 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
     }
 
     // online softmax over the quad that holds each row; every tile holds at
-    // least one key < n, so the new max is finite
+    // least one key < nk, so the new max is finite
     float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = (k0 + 8 * j + 2 * t + (e & 1) < n) ? s[j][e] * scale_log2 : -INFINITY;
+        s[j][e] = (k0 + 8 * j + 2 * t + (e & 1) < nk) ? s[j][e] * scale_log2 : -INFINITY;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
       }
     float alpha[2], psum[2] = {0.f, 0.f};
@@ -327,9 +336,9 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + g + 8 * r;
-    if (row < n) {
+    if (row < nq) {
       const float inv = 1.f / l[r];
-      float* out = o + ((long long)bh * n + row) * kD + 2 * t;
+      float* out = o + ((long long)bh * nq + row) * kD + 2 * t;
 #pragma unroll
       for (int dn = 0; dn < 8; ++dn)
         *reinterpret_cast<float2*>(out + 8 * dn) = make_float2(acc[dn][2 * r] * inv, acc[dn][2 * r + 1] * inv);
@@ -409,7 +418,7 @@ __device__ __forceinline__ void qk_pair(float (&s)[kMt][kJ][4], const uint32_t (
 // so that the next tile's mma and this tile's exponentials interleave: key
 // tiles 2kk and 2kk+1 of the next S, exponentials of the same key tiles of
 // this one (P's k step kk) and P·V's k step kk. valid is the number of keys
-// of this tile below N; only the last tile may hold fewer than kKeys.
+// of this tile below Nk; only the last tile may hold fewer than kKeys.
 template <bool kLast>
 __device__ __forceinline__ void bf16_tile(float (&s)[kMt][kJ][4], float (&acc)[kMt][8][4], float (&m)[kMt][2],
                                           float (&l)[kMt][2], const uint32_t (&qa)[kMt][4][4],
@@ -426,7 +435,7 @@ __device__ __forceinline__ void bf16_tile(float (&s)[kMt][kJ][4], float (&acc)[k
           if (8 * j + 2 * t + (e & 1) >= valid) s[mt][j][e] = -INFINITY;
     }
     // each row's max over the lane's 2 kJ values, as a tree, then over the quad that holds the row; every
-    // tile holds at least one key < N, so the new max is finite
+    // tile holds at least one key < Nk, so the new max is finite
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float x[kJ];
@@ -499,8 +508,8 @@ __device__ __forceinline__ void bf16_tile(float (&s)[kMt][kJ][4], float (&acc)[k
 
 __global__ void __launch_bounds__(kBf16Threads)
 attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int heads, int n,
-                      Strides qs, Strides ks, Strides vs, float scale) {
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int heads, int nq,
+                      int nk, Strides qs, Strides ks, Strides vs, float scale) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem4);  // K buffers 0, 1, then V buffers 0, 1
   const auto k_buf = [smem](int i) { return smem + (i & 1) * kTileHalves; };
@@ -513,14 +522,14 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int r0 = blockIdx.x * kBf16Rows + 16 * kMt * (threadIdx.x / 32);  // this warp's first Q row
   const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-  const int tiles = (n + kKeys - 1) / kKeys;
+  const int tiles = (nk + kKeys - 1) / kKeys;
   const float scale_log2 = scale * 1.4426950408889634f;  // the softmax runs in base 2, on ex2.approx
 
   // K of tile i+1 and V of tile i travel together, one tile ahead of K and V of tile i
-  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(0), kLdH, kb, ks.n, 0, n);
+  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(0), kLdH, kb, ks.n, 0, nk);
   cp_async_commit();
-  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(1), kLdH, kb, ks.n, kKeys, n);
-  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(v_buf(0), kLdH, vb, vs.n, 0, n);
+  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(1), kLdH, kb, ks.n, kKeys, nk);
+  stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(v_buf(0), kLdH, vb, vs.n, 0, nk);
   cp_async_commit();
 
   // Q's A fragments of this warp's row tiles (rows r0 + 16 mt ..): k step c is d 16c .. 16c+15
@@ -535,8 +544,8 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const __nv_bfloat16* p = qb + row * qs.n + 16 * c + 2 * t;
-          qa[mt][c][r] = row < n ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-          qa[mt][c][2 + r] = row < n ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+          qa[mt][c][r] = row < nq ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+          qa[mt][c][2 + r] = row < nq ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
         }
       }
   }
@@ -571,23 +580,23 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     cp_async_wait_0();
     __syncthreads();  // K of tile+1 and V of tile have landed; every warp is done with tile-1's buffers
     if (tile + 2 < tiles)
-      stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(tile), kLdH, kb, ks.n, (tile + 2) * kKeys, n);
-    stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(v_buf(tile + 1), kLdH, vb, vs.n, (tile + 1) * kKeys, n);
+      stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(k_buf(tile), kLdH, kb, ks.n, (tile + 2) * kKeys, nk);
+    stage_tile<__nv_bfloat16, kBf16Threads, kKeys>(v_buf(tile + 1), kLdH, vb, vs.n, (tile + 1) * kKeys, nk);
     cp_async_commit();
     bf16_tile<false>(s, acc, m, l, qa, k_buf(tile + 1) + k_lane, v_buf(tile) + v_lane, kKeys, scale_log2, t);
   }
   cp_async_wait_0();
   __syncthreads();
-  bf16_tile<true>(s, acc, m, l, qa, nullptr, v_buf(tiles - 1) + v_lane, n - (tiles - 1) * kKeys, scale_log2, t);
+  bf16_tile<true>(s, acc, m, l, qa, nullptr, v_buf(tiles - 1) + v_lane, nk - (tiles - 1) * kKeys, scale_log2, t);
 
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 16 * mt + g + 8 * r;
-      if (row < n) {
+      if (row < nq) {
         const float inv = 1.f / l[mt][r];
-        __nv_bfloat16* out = o + ((long long)bh * n + row) * kD + 2 * t;
+        __nv_bfloat16* out = o + ((long long)bh * nq + row) * kD + 2 * t;
 #pragma unroll
         for (int dn = 0; dn < 8; ++dn)
           *reinterpret_cast<uint32_t*>(out + 8 * dn) =
@@ -597,42 +606,42 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, Strides, Strides, Strides, float);
+using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, int, Strides, Strides, Strides, float);
 
 template <typename T>
 cudaError_t launch(Kernel<T> kernel, int threads, int rows, int smem_bytes, const void* q, const void* k,
-                   const void* v, void* o, int batch, int heads, int n, Strides qs, Strides ks, Strides vs,
-                   float scale, cudaStream_t stream) {
+                   const void* v, void* o, int batch, int heads, int nq, int nk, Strides qs, Strides ks,
+                   Strides vs, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + rows - 1) / rows, batch * heads);
+  const dim3 grid((nq + rows - 1) / rows, batch * heads);  // blocks over the queries; each walks all nk keys
   kernel<<<grid, threads, smem_bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                static_cast<const T*>(v), static_cast<T*>(o), heads, n, qs, ks,
-                                                vs, scale);
+                                                static_cast<const T*>(v), static_cast<T*>(o), heads, nq, nk, qs,
+                                                ks, vs, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: (B, H, N, 64) with unit stride on the last axis, 16-byte aligned
-// pointers and (batch, head, row) element strides that are multiples of 16
-// bytes' worth (4 floats, 8 bfloat16s); o: contiguous (B, H, N, 64) of the
-// same type. dtype 0 = float32 (3xTF32 mma.sync), 1 = bfloat16 (bf16
+// q: (B, H, nq, 64), k and v: (B, H, nk, 64), each with unit stride on the
+// last axis, a 16-byte aligned pointer and (batch, head, row) element strides
+// that are multiples of 16 bytes' worth (4 floats, 8 bfloat16s); o:
+// contiguous (B, H, nq, 64) of the same type. dtype 0 = float32 (3xTF32 mma.sync), 1 = bfloat16 (bf16
 // mma.sync), both on the tensor cores with f32 accumulation.
 // Returns cudaGetLastError() after the launch (no synchronisation).
 extern "C" int attention_forward(const void* q, const void* k, const void* v, void* o, int batch,
-                                 int heads, int n, int head_dim, long long q_sb, long long q_sh,
+                                 int heads, int nq, int nk, int head_dim, long long q_sb, long long q_sh,
                                  long long q_sn, long long k_sb, long long k_sh, long long k_sn,
                                  long long v_sb, long long v_sh, long long v_sn, float scale,
                                  int dtype, void* stream) {
-  if (head_dim != kD || n < 1 || batch < 1 || heads < 1) return cudaErrorInvalidValue;
+  if (head_dim != kD || nq < 1 || nk < 1 || batch < 1 || heads < 1) return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_sn}, ks{k_sb, k_sh, k_sn}, vs{v_sb, v_sh, v_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(attention_f32_kernel, kThreads, kTile, kF32SmemBytes, q, k, v, o, batch, heads, n, qs,
-                         ks, vs, scale, s);
+    return launch<float>(attention_f32_kernel, kThreads, kTile, kF32SmemBytes, q, k, v, o, batch, heads, nq, nk,
+                         qs, ks, vs, scale, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(attention_bf16_kernel, kBf16Threads, kBf16Rows, kBf16SmemBytes, q, k, v, o,
-                                 batch, heads, n, qs, ks, vs, scale, s);
+                                 batch, heads, nq, nk, qs, ks, vs, scale, s);
   return cudaErrorInvalidValue;
 }

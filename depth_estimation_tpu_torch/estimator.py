@@ -18,8 +18,10 @@ for the search.
 Over a mesh of ranks (``parallel.mesh.make_mesh``), every rank calls the
 same method: ``predict_batch_sharded`` runs the rank's dp slice of a batch
 and all-gathers the maps over dp, ``predict_sharded`` runs one frame with
-the transformer matmuls tensor-parallel over tp. Both return the whole
-result on every rank.
+the transformer matmuls tensor-parallel over tp, and ``predict_spatial``
+one frame of a conv family with the rows of every layer cut over a mesh
+axis (``parallel/spatial.py``). Each returns the whole result on every
+rank.
 """
 
 from __future__ import annotations
@@ -261,6 +263,30 @@ class DepthEstimator:
         runs replicated."""
         model = self._params_for_mesh(mesh, tensor_parallel=True)
         return self._run(self._to_device(np.asarray(img)[None]), model=model)[0].cpu().numpy()
+
+    def predict_spatial(self, img: np.ndarray, mesh, axis: str = "tp") -> np.ndarray:
+        """One frame spatially partitioned over the mesh axis ``axis`` (JAX
+        ``predict_spatial``): the source frame's rows are cut over the axis's
+        ranks, and every layer's output rows after them, each rank fetching
+        the halo rows its convolutions, upsamplings and resizes read from the
+        ranks that own them (``parallel/spatial.py``): K2 and K3 on row
+        windows, K4 on halo'd slabs. The weights are replicated; the whole
+        (H, W) float32 map comes back on every rank. The source height must
+        divide by the axis size (``ValueError``). MiDaS v2.1 and MiDaS_small
+        run so; the DPT families raise ``NotImplementedError`` (ROADMAP queue
+        A, slice 18)."""
+        from depth_estimation_tpu_torch.parallel.mesh import axis_size
+        from depth_estimation_tpu_torch.parallel.spatial import RowWorld, spatial_depth
+
+        img = np.asarray(img)
+        n = axis_size(mesh, axis)
+        if img.shape[0] % n:
+            raise ValueError(f"source height {img.shape[0]} not divisible by mesh axis {axis!r} of size {n}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh given to an estimator on {self.device}")
+        world = RowWorld.over(mesh, axis)
+        with torch.inference_mode(), self._numerics():
+            return spatial_depth(world, self, self._to_device(img[None]))[0].cpu().numpy()
 
     def _batched_fn(self, in_hw: Tuple[int, int], output: str = "f32"):
         """The frame program for (B, H, W, 3) batches at source size ``in_hw``:

@@ -15,6 +15,13 @@ module names so a hub state dict loads as it is:
 * tensor parallelism (``parallel.mesh.tensor_parallel``): ``Attention`` and
   ``Mlp`` hold a rank's heads and hidden features after ``shard_``, with one
   all-reduce after ``proj`` and one after ``fc2``,
+* sequence parallelism (``parallel.mesh.sequence_parallel`` sets
+  ``ViT.sp_group``): after the embedding each sp rank keeps its share of the
+  tokens (``parallel.ops.scatter_tokens``); LayerNorm, the MLP and the
+  queries stay token-local, each attention gathers K and V over the group
+  (``gather_kv``) and runs K1 with its local queries against every key, and
+  the hook tokens are gathered whole for the decoder (``gather_tokens``). It
+  composes with tensor parallelism (K/V of the rank's heads) and with remat,
 * per-block rematerialisation (``remat``): while a gradient is wanted, each
   block runs under ``torch.utils.checkpoint``, so the backward recomputes its
   activations from its input instead of storing them.
@@ -32,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from depth_estimation_tpu_torch.models.resnetv2 import STAGE_CHANNELS, ResNetV2Stem
 from depth_estimation_tpu_torch.ops.kernels.attention import multi_head_attention
 from depth_estimation_tpu_torch.ops.resize import resize_bilinear
-from depth_estimation_tpu_torch.parallel.ops import copy_to_group, reduce_from_group
+from depth_estimation_tpu_torch.parallel.ops import (copy_to_group, gather_kv, gather_tokens, reduce_from_group,
+                                                     scatter_tokens, seq_shards)
 
 
 def _like(linear: nn.Linear, in_features: int, out_features: int) -> nn.Linear:
@@ -67,13 +75,20 @@ class Attention(nn.Module):
         self.num_heads //= tp
         self.tp_group = group
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
+        """x: (B, N, C) tokens; ``seq`` (``parallel.ops.SeqShards``): x is
+        this sp rank's share, and K and V are gathered over the group."""
         B, N, _ = x.shape
         H = self.num_heads
         qkv = self.qkv(copy_to_group(x, self.tp_group))
         D = qkv.shape[-1] // (3 * H)
-        qkv = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # (3, B, H, N, D)
-        out = multi_head_attention(qkv[0], qkv[1], qkv[2])
+        qkv = qkv.reshape(B, N, 3, H, D)
+        if seq is None:
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (B, H, N, D) each
+        else:  # local queries (B, H, N, D) against every rank's keys and values (B, H, Nk, D)
+            q = qkv[:, :, 0].transpose(1, 2)
+            k, v = gather_kv(qkv[:, :, 1:], seq).permute(2, 0, 3, 1, 4)
+        out = multi_head_attention(q, k, v)
         return _row_parallel(self.proj, out.transpose(1, 2).reshape(B, N, H * D), self.tp_group)
 
 
@@ -105,8 +120,8 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, dim * mlp_ratio)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x, seq=None):
+        x = x + self.attn(self.norm1(x), seq)
         return x + self.mlp(self.norm2(x))
 
 
@@ -167,6 +182,7 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, self.orig_grid ** 2 + 1, embed_dim))
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads) for _ in range(depth))
+        self.sp_group = None  # the sp process group under sequence parallelism
 
     def embed(self, x):
         """x: (B, 3, H, W) → ([conv maps], tokens (B, 1 + gh·gw, C) before the blocks, (gh, gw))."""
@@ -177,17 +193,23 @@ class ViT(nn.Module):
         tokens = tokens + resize_pos_embed(self.pos_embed, (gh, gw), self.orig_grid)
         return levels, tokens, (gh, gw)
 
-    def run_block(self, i: int, tokens):
+    def run_block(self, i: int, tokens, seq=None):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self.blocks[i], tokens, use_reentrant=False)
-        return self.blocks[i](tokens)
+            return checkpoint(self.blocks[i], tokens, seq, use_reentrant=False)
+        return self.blocks[i](tokens, seq)
 
     def forward(self, x):
-        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw))."""
+        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw)).
+        Under sequence parallelism the blocks run on this rank's tokens and
+        the hooks come back whole."""
         levels, tokens, grid = self.embed(x)
+        seq = None
+        if self.sp_group is not None:
+            seq = seq_shards(self.sp_group, tokens.shape[1])
+            tokens = scatter_tokens(tokens, seq)
         hooked = {}
         for i in range(len(self.blocks)):
-            tokens = self.run_block(i, tokens)
+            tokens = self.run_block(i, tokens, seq)
             if i in self.hooks:
-                hooked[i] = tokens
+                hooked[i] = tokens if seq is None else gather_tokens(tokens, seq)
         return levels, [hooked[i] for i in self.hooks], grid

@@ -1,4 +1,4 @@
-"""K1: multi-head attention, softmax(QKᵀ/√D)·V over (B, H, N, D) tensors.
+"""K1: multi-head attention, softmax(QKᵀ/√D)·V: q (B, H, Nq, D), k and v (B, H, Nk, D).
 
 Replaces ``depth_estimation_tpu/ops/pallas/attention.py::_flash_kernel``
 (:34, launched by ``_flash_attention_padded``, dispatched by
@@ -23,6 +23,12 @@ must have 16-byte aligned data pointers and (batch, head, row) strides that
 are multiples of 16 bytes: 4 float32 or 8 bfloat16 elements. The wrapper
 raises ``ValueError`` otherwise; the ViT's fused qkv views qualify. The
 source note gives the fragment layouts.
+
+The key length Nk may differ from the query length Nq (B, H and D match):
+the grid is cut over the queries and each block walks every key, masking
+past Nk, as the TPU kernel masks ``col < kv_len`` over its key block. The
+sequence-parallel ViT runs it so, with its local queries against the keys
+gathered over ``sp`` (``parallel/ops.py``).
 
 ``attention_plain`` is the plain PyTorch version with the semantics of the
 JAX package's ``_attention_xla``: f32 logits, softmax, probabilities cast to
@@ -86,18 +92,19 @@ def attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 def _lib():
     lib = build.load("attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.attention_forward.argtypes = [p, p, p, p, i, i, i, i] + [ll] * 9 + [ctypes.c_float, i, p]
+    lib.attention_forward.argtypes = [p, p, p, p, i, i, i, i, i] + [ll] * 9 + [ctypes.c_float, i, p]
     lib.attention_forward.restype = ctypes.c_int
     return lib
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (B, H, N, D) shape; got {q.shape}, {k.shape}, {v.shape}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q must be (B, H, Nq, D) and k, v (B, H, Nk, D) with one B, H and D; "
+                         f"got {q.shape}, {k.shape}, {v.shape}")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"the attention kernel takes head_dim {HEAD_DIM}, got {q.shape[-1]}")
-    if q.shape[2] < 1:
-        raise ValueError("empty sequence")
+    if q.shape[2] < 1 or k.shape[2] < 1:
+        raise ValueError(f"empty sequence: {q.shape[2]} queries, {k.shape[2]} keys")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q, k, v must all be float32 or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -116,7 +123,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(QKᵀ/√D)V over (B, H, N, D) tensors; output (B, H, N, D) in q's dtype.
+    """softmax(QKᵀ/√D)V for q (B, H, Nq, D) and k, v (B, H, Nk, D); output
+    (B, H, Nq, D) in q's dtype.
 
     CPU tensors take ``attention_plain``. CUDA tensors launch the kernel,
     which reads q, k and v through their strides (the last axis must be
@@ -158,12 +166,12 @@ attention_op.register_autograd(_attention_backward, setup_context=_attention_set
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel on CUDA tensors, counted: the operator's CUDA implementation."""
     _check(q, k, v)
-    b, h, n, d = q.shape
-    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    b, h, nq, d = q.shape
+    out = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         err = _lib().attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, *strides,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[2], d, *strides,
             1.0 / math.sqrt(d), _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(err, "attention kernel launch")
     build.count_launch(multi_head_attention)

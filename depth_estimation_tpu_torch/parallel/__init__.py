@@ -1,4 +1,5 @@
-"""Data, tensor and pipeline parallelism on ``torch.distributed`` (JAX ``parallel/``).
+"""Data, tensor, pipeline and sequence parallelism and spatial partitioning on
+``torch.distributed`` (JAX ``parallel/``).
 
 The JAX package is single-controller: one program over a ``Mesh`` of
 devices, with GSPMD inserting the collectives. PyTorch is multi-controller:
@@ -11,13 +12,18 @@ collectives written out. The pieces:
 * ``mesh``     — ``make_mesh`` (a ``DeviceMesh`` named ``("dp", "tp")`` or
   ``("dp", "pp", "sp", "tp")``), the tensor-parallel rules on the state-dict
   names, ``shard_params`` / ``unshard_params`` / ``gather_params``, the dp
-  slice of a batch, and ``tensor_parallel``, which cuts a model's ViT blocks;
+  slice of a batch, ``tensor_parallel``, which cuts a model's ViT blocks,
+  and ``seq_sharding`` / ``sequence_parallel``, which cut a ViT's tokens
+  over the mesh's ``sp`` axis;
 * ``ops``      — the two Megatron operators of the row- and column-parallel
-  matmuls (imports no model, so ``models/vit.py`` can use it);
+  matmuls and the three token collectives of sequence parallelism (scatter,
+  K/V gather, hook gather; imports no model, so ``models/vit.py`` can use
+  it);
 * ``pipeline`` — the GPipe schedule of the ViT trunk over the mesh's ``pp``
   axis, differentiable through its sends, receives and hook gather;
-* ``dryrun``   — ``dryrun_multichip``, one step of each multi-device program
-  on a tiny DPT.
-
-Sequence parallelism (``sp``) and spatial partitioning wait for a later slice.
+* ``spatial``  — one frame of a conv family (MiDaS v2.1, MiDaS_small) with
+  every layer's rows cut over a mesh axis and halo rows exchanged between
+  neighbours (``DepthEstimator.predict_spatial``);
+* ``dryrun``   — ``dryrun_multichip``, one step of each of the six
+  multi-device programs on a tiny DPT and a tiny MiDaS v2.1.
 """

@@ -8,13 +8,16 @@ raises without a GPU; gloo ranks when the caller asks for the CPU) and runs,
 on a tiny DPT with random weights:
 
 1. a (dp, tp) train step: dp batch slices, Megatron tp of the transformer matmuls;
+2. a (dp, sp, tp) train step, sp = tp = 2: the trunk sequence-parallel
+   (``parallel.mesh.sequence_parallel``) and tensor-parallel, when the world
+   divides by 4 (else it prints SKIP, as JAX does);
 3. a (dp, pp) train step through the GPipe trunk, 2 microbatches;
 4. ``predict_sharded``: one frame with the trunk tensor-parallel;
+5. ``predict_spatial`` of a tiny MiDaS v2.1: one frame's rows cut over the
+   world, with halo exchanges at the convolutions (``parallel/spatial.py``);
 6. ``predict_batch_sharded`` over a pure dp mesh, held against ``predict_batch``.
 
-Programs 2 (sequence parallelism) and 5 (spatial partitioning) wait for the
-next slice and print one line saying so. Global rank 0's lines are printed
-and returned.
+Global rank 0's lines are printed and returned.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 # head_dim 64, as the CUDA attention kernel takes; 4 heads split over tp ∈ {1, 2, 4}
 TINY_FIELDS = dict(embed_dim=256, depth=4, num_heads=4, hooks=(0, 1, 2, 3), reassemble_channels=(16, 32, 64, 64),
                    features=32, img_size=64)
-NAME = "TinyDPT_dryrun"
+NAME, V21_NAME = "TinyDPT_dryrun", "TinyV21_dryrun"
 
 
 def _rank(rank: int, n: int, device: str) -> List[str]:
@@ -38,7 +41,8 @@ def _rank(rank: int, n: int, device: str) -> List[str]:
     from depth_estimation_tpu_torch.config import PreprocessConfig
     from depth_estimation_tpu_torch.estimator import DepthEstimator, random_state_dict
     from depth_estimation_tpu_torch.models.dpt import DPT, DPTConfig
-    from depth_estimation_tpu_torch.parallel.mesh import axis_size, make_mesh
+    from depth_estimation_tpu_torch.models.midas_v21 import MidasV21, MidasV21Config
+    from depth_estimation_tpu_torch.parallel.mesh import axis_size, make_mesh, sequence_parallel
     from depth_estimation_tpu_torch.parallel.pipeline import PipelinedDPT
     from depth_estimation_tpu_torch.train.step import init_state, make_train_step, shard_batch
 
@@ -68,7 +72,14 @@ def _rank(rank: int, n: int, device: str) -> List[str]:
     loss = run_step(mesh, lambda m: m, dp)
     lines.append(f"dryrun_multichip 1/6 OK: (dp={dp}, tp={tp}) over {n} devices, 1 train step, loss={loss:.4f}")
 
-    lines.append("dryrun_multichip 2/6 waits for the next slice: sequence parallelism (ROADMAP queue A)")
+    # 2. dp × sp × tp — the trunk's tokens over sp, its heads over tp
+    if n % 4 == 0:
+        mesh = make_mesh(n, tp=2, sp=2, device=device)
+        loss = run_step(mesh, lambda m: sequence_parallel(m, mesh), axis_size(mesh, "dp"))
+        lines.append(f"dryrun_multichip 2/6 OK: (dp={axis_size(mesh, 'dp')}, sp=2, tp=2), 1 train step, "
+                     f"loss={loss:.4f}")
+    else:
+        lines.append(f"dryrun_multichip 2/6 SKIP: n_devices={n} not divisible by 4")
 
     # 3. dp × pp — GPipe trunk, differentiated through the schedule
     if n % 2 == 0:
@@ -95,8 +106,19 @@ def _rank(rank: int, n: int, device: str) -> List[str]:
         raise RuntimeError(f"predict_sharded gave {depth.shape}, finite {np.isfinite(depth).all()}")
     lines.append(f"dryrun_multichip 4/6 OK: tp={tp_inf} inference frame program, depth[0,0]={float(depth[0, 0]):.4f}")
 
-    lines.append("dryrun_multichip 5/6 waits for the next slice: spatial partitioning, predict_spatial "
-                 "(ROADMAP queue A)")
+    # 5. spatial inference: a tiny MiDaS v2.1 frame, its rows over tp
+    tiny_v21 = MidasV21Config(depths=(1, 1, 1, 1), planes=(8, 16, 32, 64), stem_features=8, groups=4,
+                              width_per_group=16, features=16, head_features=8, head_mid=8)
+    registry.register(registry.ModelEntry(V21_NAME, lambda: MidasV21(tiny_v21), pre))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        est_conv = DepthEstimator(V21_NAME, seed=0, verbose=False, device=device)
+    img_sp = np.zeros((96 if 96 % tp_inf == 0 else tp_inf * 12, 128, 3), np.uint8)
+    depth_sp = est_conv.predict_spatial(img_sp, mesh, axis="tp")
+    if depth_sp.shape != img_sp.shape[:2] or not np.isfinite(depth_sp).all():
+        raise RuntimeError(f"predict_spatial gave {depth_sp.shape}, finite {np.isfinite(depth_sp).all()}")
+    lines.append(f"dryrun_multichip 5/6 OK: {tp_inf}-way row-sharded (spatial) conv inference, "
+                 f"depth[0,0]={float(depth_sp[0, 0]):.4f}")
 
     # 6. dp-sharded batched stills, spot-checked against the one-rank program
     mesh_dp = make_mesh(n, device=device)

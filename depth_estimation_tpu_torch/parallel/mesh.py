@@ -23,6 +23,12 @@ Megatron's two operators, in ``parallel/ops.py``.
 ``shard_params`` and ``unshard_params`` are pure functions of state dicts, so
 one process can hold every rank's shard in turn; ``gather_params`` is the
 collective form of ``unshard_params`` over the mesh's tp group.
+
+Sequence parallelism (JAX ``seq_sharding`` + ``ViT.act_sharding``):
+``sequence_parallel`` gives a model's ViTs the mesh's sp group, so their
+blocks run on each sp rank's share of the tokens (``parallel/ops.py``). The
+weights stay replicated over sp; the blocks' gradients, partial over the
+tokens, are summed over sp by the train step.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import torch.distributed as dist
 from torch import nn
 
 from depth_estimation_tpu_torch.device import resolve_device
-from depth_estimation_tpu_torch.models.vit import Attention, Mlp
+from depth_estimation_tpu_torch.models.vit import Attention, Mlp, ViT
 
 
 def make_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1, device="cuda"):
@@ -178,6 +184,39 @@ def tensor_parallel(model: nn.Module, mesh) -> nn.Module:
         m.shard_(tp, group)
     model.load_state_dict(shard_params(full, axis_rank(mesh, "tp"), tp))
     return model
+
+
+def seq_sharding(mesh):
+    """The mesh's sp process group, over which a ViT's tokens are cut
+    (JAX ``seq_sharding``: batch over dp, tokens over sp). Raises
+    ``ValueError`` for a mesh without an 'sp' axis."""
+    if "sp" not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh has no 'sp' axis: {mesh.mesh_dim_names}")
+    return mesh.get_group("sp")
+
+
+def sequence_parallel(model: nn.Module, mesh) -> nn.Module:
+    """Run ``model``'s ViT trunks sequence-parallel over the mesh's sp axis, in
+    place (weights unchanged and replicated): each sp rank's blocks see its
+    share of the tokens, K and V are gathered for the attention, and the hook
+    tokens come back whole for the decoder, which every sp rank runs. It
+    composes with ``tensor_parallel`` and with ``remat``; a pipelined trunk
+    (pp > 1) is refused. At sp = 1 the same path runs over a group of one. A
+    model with no ViT (the conv families) is left as it is."""
+    group = seq_sharding(mesh)
+    if axis_size(mesh, "pp") > 1:
+        raise ValueError(f"sequence parallelism runs the trunk unpipelined; the mesh has pp={axis_size(mesh, 'pp')}")
+    for m in model.modules():
+        if isinstance(m, ViT):
+            m.sp_group = group
+    return model
+
+
+def sp_partial_tensors(model: nn.Module):
+    """[(sp group, [tensor])]: the parameters of each sequence-parallel ViT's
+    blocks, whose gradients are partial over the tokens."""
+    return [(m.sp_group, list(m.blocks.parameters())) for m in model.modules()
+            if isinstance(m, ViT) and m.sp_group is not None]
 
 
 def batch_slice(x, mesh):

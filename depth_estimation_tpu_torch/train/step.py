@@ -28,7 +28,10 @@ slice, and the step takes each gradient from the pipeline stage that owns
 it, then averages the gradients and the loss over ``dp``. The tp ranks need
 no gradient exchange: the Megatron operators (``parallel/mesh.py``) leave a
 replicated tensor's gradient whole and equal on every tp rank, and a cut
-tensor's gradient is the rank's own. ``save_sharded_train_state`` writes
+tensor's gradient is the rank's own. Under sequence parallelism
+(``parallel.mesh.sequence_parallel``) the ViT blocks' gradients are partial
+over the tokens and are summed over sp; the embedding's and the decoder's
+are whole on every sp rank (``parallel/ops.py``) and are not. ``save_sharded_train_state`` writes
 such a state whole, in ``utils/checkpoint.py``'s single-device format, and
 ``load_sharded_train_state`` cuts every rank's shard from it again, so a
 checkpoint moves between meshes and a single device.
@@ -49,7 +52,8 @@ from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.parallel.mesh import (axis_rank, axis_size, batch_slice, gather_params, gather_tensor,
-                                                      mesh_device, param_pspecs, shard_tensor, tensor_parallel)
+                                                      mesh_device, param_pspecs, shard_tensor, sp_partial_tensors,
+                                                      tensor_parallel)
 from depth_estimation_tpu_torch.parallel.pipeline import gradient_owners
 from depth_estimation_tpu_torch.train.losses import gradient_matching_loss, ssi_loss
 from depth_estimation_tpu_torch.utils.checkpoint import read_train_state, write_train_state
@@ -145,9 +149,14 @@ def load_sharded_train_state(path, state: TrainState) -> TrainState:
 def sync_gradients(model: nn.Module, mesh) -> None:
     """Make every rank's gradients the mesh-wide step's: each tensor's from
     the pipeline stage that owns it (``pipeline.gradient_owners``; the same
-    on every stage without a pipeline), then the mean over dp."""
+    on every stage without a pipeline), the sum over sp of the
+    sequence-parallel blocks' partial gradients, then the mean over dp."""
     tensors = trainable_tensors(model)
     pp, dp = axis_size(mesh, "pp"), axis_size(mesh, "dp")
+    for group, partial in sp_partial_tensors(model):
+        for t in partial:
+            if t.grad is not None:
+                dist.all_reduce(t.grad, group=group)
     if pp > 1:
         group = mesh.get_group("pp")
         for name, owner in gradient_owners(list(tensors), pp).items():

@@ -132,6 +132,27 @@ def test_attention_kernel_at_tensor_parallel_heads(cuda, gen, heads, tp, dtype, 
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 1e-2)], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,nq,nk", [(1, 2, 17, 65), (2, 3, 129, 300), (1, 4, 100, 70), (1, 4, 17, 300),
+                                       (1, 2, 129, 33), (1, 16, 385, 769), (1, 16, 193, 769)],
+                         ids=["17x65", "129x300", "nk70", "nq17", "nk_lt_nq", "sp2", "sp4"])
+def test_attention_kernel_with_its_own_key_length(cuda, gen, b, h, nq, nk, dtype, tol):
+    """Nq queries against Nk keys, as a sequence-parallel rank runs K1: q a
+    view of the rank's fused projection, k and v views of the gathered K/V.
+    Key lengths off both routes' tiles (64 f32, 32 bf16), fewer than one
+    f32 query tile (17), fewer keys than queries, and DPT_Large's 769 tokens
+    over sp 2 and 4 (385 and 193 queries on rank 0)."""
+    q = torch.randn((b, nq, 3, h, 64), generator=gen, device=cuda).to(dtype).permute(2, 0, 3, 1, 4)[0]
+    kv = torch.randn((b, nk, 2, h, 64), generator=gen, device=cuda).to(dtype).permute(2, 0, 3, 1, 4)
+    before = tatt.multi_head_attention.launches
+    got = tatt.multi_head_attention(q, kv[0], kv[1])
+    torch.cuda.synchronize()
+    assert tatt.multi_head_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, nq, 64) and got.is_contiguous()
+    ref = tatt.attention_plain(q, kv[0], kv[1])
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=max(tol, 1e-4))
+
+
 def test_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros((1, 2, 16, 32), device=cuda)
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -257,6 +278,49 @@ _K23_TILINGS = {("preprocess", (480, 640), (384, 512)): ((6, 128, 256), (24, 128
                 ("preprocess", (480, 640), (192, 256)): ((3, 64, 256), (12, 64, 256)),
                 ("resize", (384, 512), (480, 640)): ((10, 128, 240), (32, 128, 300)),
                 ("resize", (192, 256), (480, 640)): ((10, 128, 240), (32, 128, 300))}
+
+
+def _windows(in_h, out_h, n):
+    """Each of n ranks' output rows [r0, r1) and the source rows [lo, hi) they read."""
+    from depth_estimation_tpu_torch.parallel.spatial import row_bounds
+
+    return [(r0, r1, *trsz.window_rows(in_h, out_h, r0, r1)) for r0, r1 in row_bounds(out_h, n)]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("cfg,out_hw", [(DPT_PREPROCESS, (384, 512)), (SMALL_PREPROCESS, (192, 256))],
+                         ids=["dpt", "midas"])
+def test_preprocess_kernel_row_windows(cuda, cfg, out_hw, n):
+    """K2 on each of n ranks' output-row windows of a 480×640 frame
+    (``parallel/spatial.py``), from the source rows they read: one launch
+    each, against the plain version on the same window and against the
+    whole-frame launch's rows."""
+    rng = np.random.default_rng(n)
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, 480, 640, 3), np.uint8)).to(cuda)
+    whole = trsz.fused_preprocess(imgs, out_hw, cfg.mean, cfg.std)
+    for r0, r1, lo, hi in _windows(480, out_hw[0], n):
+        slab, window = imgs[:, lo:hi].contiguous(), (r0, r1, 480, lo)
+        before = trsz.fused_preprocess.launches
+        got = trsz.fused_preprocess(slab, out_hw, cfg.mean, cfg.std, window=window)
+        assert trsz.fused_preprocess.launches == before + 1 and got.shape == (1, 3, r1 - r0, out_hw[1])
+        torch.testing.assert_close(got, trsz.preprocess_plain(slab, out_hw, cfg.mean, cfg.std, window=window),
+                                   atol=3e-5, rtol=0)
+        torch.testing.assert_close(got, whole[:, :, r0:r1], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("in_hw", [(384, 512), (192, 256)], ids=["dpt", "midas"])
+def test_resize_kernel_row_windows(cuda, gen, in_hw, n):
+    """K3 on each of n ranks' output-row windows of the 480×640 map, as K2's above."""
+    x = torch.rand((1, *in_hw), generator=gen, device=cuda)
+    whole = trsz.resize_planes(x, (480, 640))
+    for r0, r1, lo, hi in _windows(in_hw[0], 480, n):
+        slab, window = x[:, lo:hi].contiguous(), (r0, r1, in_hw[0], lo)
+        before = trsz.resize_planes.launches
+        got = trsz.resize_planes(slab, (480, 640), window=window)
+        assert trsz.resize_planes.launches == before + 1 and got.shape == (1, r1 - r0, 640)
+        torch.testing.assert_close(got, trsz.resize_planes_plain(slab, (480, 640), window=window), atol=3e-5, rtol=0)
+        torch.testing.assert_close(got, whole[:, r0:r1], atol=1e-6, rtol=0)
 
 
 def test_resize_tilings_at_main_shapes(cuda):
@@ -592,6 +656,7 @@ def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
 def _op_cases(gen, cuda):
     """(operator, args, plain version of the same args) for each kernel and route."""
     qkv = torch.randn((1, 77, 3, 2, 64), generator=gen, device=cuda).permute(2, 0, 3, 1, 4)
+    kv = torch.randn((1, 150, 2, 2, 64), generator=gen, device=cuda).permute(2, 0, 3, 1, 4)
     imgs = torch.randint(0, 256, (2, 40, 56, 3), generator=gen, device=cuda, dtype=torch.uint8)
     planes = torch.rand((2, 24, 32), generator=gen, device=cuda)
     depth = 600 * planes - 100  # the u8 route's wrap-around both ways
@@ -599,6 +664,12 @@ def _op_cases(gen, cuda):
     pre = (imgs, [24, 32], list(DPT_PREPROCESS.mean), list(DPT_PREPROCESS.std), True, "cubic")
     return {
         "attention": (torch.ops.depth_tpu_torch.attention, (qkv[0], qkv[1], qkv[2]), tatt.attention_plain),
+        "attention_nk": (torch.ops.depth_tpu_torch.attention, (qkv[0], kv[0], kv[1]), tatt.attention_plain),
+        "preprocess_window": (torch.ops.depth_tpu_torch.preprocess,  # output rows 9 … 19 from rows 14 … 32
+                              (imgs[:, 14:33].contiguous(), *pre[1:], [9, 20, 40, 14]), trsz.preprocess_plain),
+        "resize_window": (torch.ops.depth_tpu_torch.resize_planes,  # output rows 10 … 29 from rows 4 … 19
+                          (planes[:, 4:20].contiguous(), [40, 56], "cubic", False, "f32", [10, 30, 24, 4]),
+                          trsz.resize_planes_plain),
         "preprocess": (torch.ops.depth_tpu_torch.preprocess, pre, trsz.preprocess_plain),
         "resize_f32": (torch.ops.depth_tpu_torch.resize_planes, (planes, [40, 56], "cubic", False, "f32"),
                        trsz.resize_planes_plain),
@@ -608,7 +679,8 @@ def _op_cases(gen, cuda):
     }
 
 
-OP_CASES = ("attention", "preprocess", "resize_f32", "resize_u8", "grouped_conv3x3")
+OP_CASES = ("attention", "attention_nk", "preprocess", "preprocess_window", "resize_f32", "resize_window",
+            "resize_u8", "grouped_conv3x3")
 
 
 @pytest.mark.parametrize("case", OP_CASES)
@@ -630,7 +702,8 @@ def test_operator_cuda_implementation_matches_plain(cuda, gen, case):
         near = (f32 - f32.round()).abs() < 1e-3
         assert not ((got != want) & ~near).any()
     else:  # the kernels' tolerances of the tests above
-        atol, rtol = {"attention": (2e-5, 1e-4), "grouped_conv3x3": (1e-4, 1e-4)}.get(case, (3e-5, 0))
+        atol, rtol = {"attention": (2e-5, 1e-4), "attention_nk": (2e-5, 1e-4),
+                      "grouped_conv3x3": (1e-4, 1e-4)}.get(case, (3e-5, 0))
         torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
@@ -639,7 +712,7 @@ def test_operator_opcheck_on_cuda(cuda, gen, case):
     """``torch.library.opcheck`` on CUDA tensors: schema, autograd
     registration, the fake implementation against the CUDA one, AOT tracing."""
     op, args, _ = _op_cases(gen, cuda)[case]
-    if case in ("attention", "resize_f32", "grouped_conv3x3"):  # the routes with a gradient
+    if case in ("attention", "attention_nk", "resize_f32", "resize_window", "grouped_conv3x3"):  # with a gradient
         args = tuple(a.detach().requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
                      for a in args)
     result = torch.library.opcheck(op.default, args)

@@ -193,10 +193,11 @@ def test_sharded_predictors_match_jax(world, jax_estimator, frames):
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    """All six programs run, 2 (dp × sp × tp) and 5 (predict_spatial) included."""
     lines = dryrun_multichip(4, device="cpu")
     printed = capsys.readouterr().out.splitlines()
     assert printed == lines and len(lines) == 6
-    for i in (1, 3, 4, 6):
+    for i in range(1, 7):
         assert lines[i - 1].startswith(f"dryrun_multichip {i}/6 OK")
-    for i in (2, 5):
-        assert lines[i - 1].startswith(f"dryrun_multichip {i}/6 waits for the next slice") and "OK" not in lines[i - 1]
+    assert "(dp=1, sp=2, tp=2)" in lines[1] and "4-way row-sharded (spatial)" in lines[4]
+    assert not any("waits" in line for line in lines)

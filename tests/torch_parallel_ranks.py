@@ -8,6 +8,7 @@ the JAX package's.
 
 import os
 
+import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.config import PreprocessConfig
@@ -217,3 +218,80 @@ def train_world(rank, fields, hub_sd, imgs, gt, net_hw, lr, root):
                        for _ in range(2)]
     dist.barrier()
     return out
+
+
+# -- sequence parallelism -----------------------------------------------------
+
+def sp_world(rank, fields, hub_sd, x, gt, lr):
+    """The (dp=2, sp=2, tp=2) mesh of eight ranks: the tiny DPT's forward with
+    its trunk sequence- and tensor-parallel, K1's (q, k) token counts, and one
+    AdamW step of it with remat, its gradients and tensors gathered whole."""
+    import torch.distributed as dist
+
+    from depth_estimation_tpu_torch.models import vit as vit_module
+    from depth_estimation_tpu_torch.parallel.mesh import sequence_parallel, seq_sharding, tensor_parallel
+    from depth_estimation_tpu_torch.train.step import init_state, make_train_step, shard_batch, trainable_tensors
+
+    out = {}
+    mesh = make_mesh(8, tp=2, sp=2, device="cpu")
+    out["coords"] = {a: axis_rank(mesh, a) for a in ("dp", "sp", "tp")}
+    out["sp_group_size"] = dist.get_world_size(seq_sharding(mesh))
+    model = sequence_parallel(tensor_parallel(dpt(fields, hub_sd).eval(), mesh), mesh)
+    shapes, attention = [], vit_module.multi_head_attention
+
+    def recorded(q, k, v):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return attention(q, k, v)
+
+    vit_module.multi_head_attention = recorded
+    try:
+        with torch.no_grad():
+            out["forward"] = model(batch_slice(torch.from_numpy(x), mesh)).numpy()
+    finally:
+        vit_module.multi_head_attention = attention
+    out["attention_shapes"] = shapes
+
+    model = sequence_parallel(dpt({**fields, "remat": True}, hub_sd), mesh)
+    state = init_state(model, lr=lr, mesh=mesh)
+    step = make_train_step(model, state.optimizer, mesh=mesh)
+    with torch.backends.mkldnn.flags(enabled=False):
+        out["loss"] = float(step(shard_batch(x, mesh), shard_batch(gt, mesh)))
+    tensors = trainable_tensors(model)
+    out["grads"] = numpy_dict(gather_params({k: t.grad for k, t in tensors.items()}, mesh))
+    out["params"] = numpy_dict(gather_params(model.state_dict(), mesh))
+    return out
+
+
+# -- spatial partitioning -----------------------------------------------------
+
+def spatial_world(rank, v21_fields, v21_sd, x, small_sd, img):
+    """Eight ranks: tiny MiDaS v2.1's forward with every layer's rows cut
+    over tp = 8 and tp = 4 (two dp replicas), MiDaS_small's
+    ``predict_spatial`` over tp = 8, and the two refusals."""
+    from depth_estimation_tpu_torch.models.midas_v21 import MidasV21, MidasV21Config
+    from depth_estimation_tpu_torch.parallel.spatial import RowWorld, spatial_forward
+
+    out = {}
+    meshes = {8: make_mesh(8, tp=8, device="cpu"), 4: make_mesh(8, tp=4, device="cpu")}
+    v21 = MidasV21(MidasV21Config(**v21_fields))
+    v21.load_state_dict({k: torch.as_tensor(v) for k, v in v21_sd.items()})
+    with torch.no_grad():
+        for n, mesh in meshes.items():
+            out[f"v21_tp{n}"] = spatial_forward(RowWorld.over(mesh, "tp"), v21.eval(), torch.from_numpy(x)).numpy()
+    est = DepthEstimator("MiDaS_small", params=small_sd, seed=0, verbose=False, device="cpu")
+    out["small_tp8"] = est.predict_spatial(img, meshes[8])
+    try:
+        est.predict_spatial(np.zeros((97, *img.shape[1:]), np.uint8), meshes[8])
+    except ValueError as e:
+        out["tall_error"] = str(e)
+    dpt_est = estimator("TinyDPT_spatial_test", lambda: DPT(DPTConfig(**DRYRUN_DPT)), None)
+    try:
+        dpt_est.predict_spatial(img, meshes[4])
+    except NotImplementedError as e:
+        out["dpt_error"] = str(e)
+    return out
+
+
+# a DPT with 64-wide heads, as parallel/dryrun.py's
+DRYRUN_DPT = dict(embed_dim=128, depth=2, num_heads=2, hooks=(0, 0, 1, 1), reassemble_channels=(16, 32, 64, 64),
+                  features=32, img_size=64)
