@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build   — compiles the CUDA kernels under ``depth_estimation_tpu_torch/csrc/``
    (one ``nvcc`` per source, all started together) and gives ptxas's
-   registers and spills for each kernel function;
+   registers and spills for each kernel function, then the C++ framepipe
+   (``native/framepipe.cpp``, ``g++``) and its seconds;
 3. kernel  — each kernel against its plain PyTorch version at the main
    paths' shapes: max abs error (asserted within the stated tolerance),
    kernel, plain and library device times (CUDA events, median of 25 runs of
@@ -174,9 +175,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    577, 64). Each path prints its max-scaled error and launches.
 
 18. parallel_sp — sequence parallelism and spatial partitioning at full
-   width. (a) A world of one over NCCL: ``predict_spatial`` of MiDaS v2.1
-   and of MiDaS_small on a 480×640 frame against ``predict`` (the 1e-3
-   gate; K2 1, K3 1, K4 30 / 0), and DPT_Large's frame with its trunk
+   width. (a) A world of one over NCCL: ``predict_spatial`` of MiDaS v2.1,
+   MiDaS_small, DPT_Large and DPT_Hybrid on a 480×640 frame against
+   ``predict`` (the 1e-3 gate; K2 1, K3 1, K4 30 / 0 / 0 / 0, K1 0 / 0 /
+   24 / 12: the DPT trunks sequence-parallel over the axis's group of one,
+   the hybrid's GroupNorm statistics all-reduced), and DPT_Large's frame with its trunk
    ``sequence_parallel`` over an sp axis of one (the token scatter, K/V and
    hook gathers over NCCL) against ``predict`` (1e-5; K1 24, K2 1, K3 1).
    (b) One rank at a time, the exchanges done by slicing the whole tensor
@@ -188,16 +191,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    2e-5); MiDaS v2.1's frame program at 480×640 cut into 2 and 4 row slabs
    (``parallel.spatial.RowWorld.local``): each slab through K2's row window,
    the network with K4 on halo'd slabs, and K3's row window, the assembled
-   map against ``predict`` (the 1e-3 gate; K2 n, K3 n, K4 30·n). Then K1
+   map against ``predict`` (the 1e-3 gate; K2 n, K3 n, K4 30·n), and the
+   same for DPT_Large's and DPT_Hybrid's frame programs (their patch, stem
+   and decoder rows in slabs, the trunk whole: K1 24 / 12, K2 n, K3 n). Then K1
    checked and timed at the two sp shapes in f32 (3xTF32 bound) and bf16
    beside SDPA, and K2's and K3's window launches of a rank of 2 and of 4
    checked against their plain versions and the whole-frame launch sliced,
    and timed.
 
+19. native — the C++ framepipe (``runtime/native.py``), after the
+   DPT_Large profiles: built in phase 2 (this phase fails if it did not
+   build or load; it prints whether it built with OpenCV and, if not,
+   ``native_load_error()``), its synthetic
+   source byte-equal to Python's over 200 frames at 480×640, and the
+   DPT_Large stream of 16 frames on it (no Python prefetch thread,
+   ``needs_prefetch`` False) writing the same u8 frames as on the Python
+   source (K1 24, K2 1, K3 1 a frame each); both streams' FPS, with no
+   claim.
+
 Then the kernel table as one JSON line (each kernel's launches on its own
 path's per-frame stream, and under ``per_path`` on each family's and the
-fused, detection, tflite, staged, server, fused_server, multistream, train (8
-steps of ``fit``) and midas_train_step paths', the loaded programs'
+fused, detection, tflite, staged, server, fused_server, multistream,
+native_stream, train (8 steps of ``fit``) and midas_train_step paths', the loaded programs'
 (``export_*``) and the parallel paths' (``parallel_*``), the backward under
 ``grad``, K1 at its tp shapes under ``tp_heads`` and at its sp shapes
 under ``sp_shapes``, K2's and K3's window launches under ``windows``; K2's
@@ -2249,6 +2264,7 @@ def run_parallel_tp(est, gen, phase="parallel_tp", tps=(2, 4)):
 
 
 SMALL_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+HYBRID_PER_PROGRAM = {"multi_head_attention": 12, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
 K1_ONLY = {"multi_head_attention": 1, "fused_preprocess": 0, "resize_planes": 0, "grouped_conv3x3": 0}
 SP_TOKENS = 769  # DPT_Large at 384×512
 
@@ -2275,6 +2291,9 @@ def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
              "midas_small": (DepthEstimator("MiDaS_small", seed=0, device="cuda", verbose=False), SMALL_PER_PROGRAM)}
     wants = {key: e.predict(frame) for key, (e, _) in convs.items()}
     want_dpt = est.predict(frame)
+    dpts = {"dpt_large": (est, DPT_PER_PROGRAM),
+            "dpt_hybrid": (DepthEstimator("DPT_Hybrid", seed=0, device="cuda", verbose=False), HYBRID_PER_PROGRAM)}
+    wants.update({key: e.predict(frame) for key, (e, _) in dpts.items()})
 
     # (a) a world of one over NCCL
     torch.cuda.set_device(0)
@@ -2283,7 +2302,7 @@ def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
                                 device_id=torch.device("cuda", 0))
         try:
             mesh = make_mesh(1, device="cuda")
-            for key, (e, per_program) in convs.items():
+            for key, (e, per_program) in {**convs, **dpts}.items():
                 got, counts = counted(lambda: e.predict_spatial(frame, mesh))
                 rows[f"{key}_predict_spatial"] = held(phase, f"{key}_predict_spatial",
                                                       max_scaled_err(got, wants[key]), 1e-3, counts, per_program)
@@ -2330,19 +2349,77 @@ def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
     finally:
         vit_module.gather_kv, vit_module.multi_head_attention = gather_kv, attention
 
-    midas = convs["midas"][0]
-    for n in sps:
-        def slabs():
-            with torch.inference_mode(), midas._numerics():
-                return spatial_depth(RowWorld.local(n), midas, midas._to_device(frame[None]))[0].cpu().numpy()
+    def slabs(e, n):
+        with torch.inference_mode(), e._numerics():
+            return spatial_depth(RowWorld.local(n), e, e._to_device(frame[None]))[0].cpu().numpy()
 
-        got, counts = counted(slabs)
+    for n in sps:
+        got, counts = counted(lambda: slabs(convs["midas"][0], n))
         rows[f"midas_{n}_slabs"] = held(phase, f"midas_{n}_slabs", max_scaled_err(got, wants["midas"]), 1e-3, counts,
                                         MIDAS_PER_PROGRAM, n)
-    del convs, midas
+    # the DPT families' slabs: K2 and K3 a slab, the trunk whole (one K1 a block)
+    for key, (e, per_program) in dpts.items():
+        for n in sps:
+            got, counts = counted(lambda: slabs(e, n))
+            rows[f"{key}_{n}_slabs"] = held(phase, f"{key}_{n}_slabs", max_scaled_err(got, wants[key]), 1e-3, counts,
+                                            {**per_program, "fused_preprocess": n, "resize_planes": n})
+    del convs, dpts
     torch.cuda.empty_cache()
     emit(phase, world_size=1, backend="nccl", paths=rows, seconds=time.perf_counter() - t_phase)
     return {f"parallel_sp_{k}": v["launches"] for k, v in rows.items()}
+
+
+NATIVE_FRAMES = 200
+
+
+def run_native(est, phase="native"):
+    """The C++ framepipe (the module docstring, phase 19), built in phase 2
+    (failing where it did not build): its synthetic source byte-equal to
+    Python's, and the DPT_Large stream on it against the stream on Python's."""
+    from depth_estimation_tpu_torch.runtime import native
+    from depth_estimation_tpu_torch.runtime.stream import VidStream
+    from depth_estimation_tpu_torch.runtime.video import NullSink, SyntheticSource, needs_prefetch
+
+    check(native.native_available(), f"{phase}: the framepipe did not build or load: {native.native_load_error()}")
+    spec = f"synthetic:{NATIVE_FRAMES}x480x640"
+    ns, ps = native.NativeSource(spec), SyntheticSource.from_spec(spec)
+    n = 0
+    while True:
+        (ok_n, f_n), (ok_p, f_p) = ns.read(), ps.read()
+        check(ok_n == ok_p, f"{phase}: the native source ended at frame {n}, the Python one did not, or back")
+        if not ok_n:
+            break
+        check(np.array_equal(f_n, f_p), f"{phase}: synthetic frame {n} differs from Python's")
+        n += 1
+    ns.release()
+    check(n == NATIVE_FRAMES, f"{phase}: {n} synthetic frames")
+
+    class Keep(NullSink):
+        def __init__(self):
+            super().__init__()
+            self.frames = []
+
+        def write(self, frame):
+            super().write(frame)
+            self.frames.append(np.array(frame, copy=True))
+
+    outs, fps, launches = {}, {}, {}
+    for kind, src in (("native", f"synthetic:{FRAMES}x480x640"), ("python", SyntheticSource(FRAMES, 480, 640))):
+        sink = Keep()
+        vs = VidStream(est, src, sink, verbose=False)
+        source = vs.video.inner  # the native source, under the ResilientSource alone
+        if kind == "native":
+            check(isinstance(source, native.NativeSource) and not needs_prefetch(source),
+                  f"{phase}: the stream reads {type(source).__name__}, prefetch {needs_prefetch(source)}")
+        _, launches[kind] = counted(vs.update)
+        check(launches[kind] == launches_per(DPT_PER_PROGRAM, FRAMES), f"{phase} {kind}: launches {launches[kind]}")
+        outs[kind], fps[kind] = sink.frames, vs.timer.summary()["depth"]["fps_completion"]
+    check(len(outs["native"]) == len(outs["python"]) == FRAMES
+          and all(np.array_equal(a, b) for a, b in zip(outs["native"], outs["python"])),
+          f"{phase}: the stream's u8 frames differ between the native and the Python source")
+    emit(phase, built_with_opencv=native.native_opencv(), load_error=native.native_load_error(), synthetic_frames=n,
+         stream_frames=FRAMES, native_fps=fps["native"], python_fps=fps["python"], launches=launches["native"])
+    return launches["native"]
 
 
 def check_window(frames, gen, kernel, n, rank=1):
@@ -2398,6 +2475,7 @@ def main():
     from depth_estimation_tpu_torch.ops.kernels import build
     from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
     from depth_estimation_tpu_torch.parallel.ops import token_counts
+    from depth_estimation_tpu_torch.runtime import native
     from depth_estimation_tpu_torch.runtime.video import SyntheticSource
     from depth_estimation_tpu_torch.utils import checkpoint
 
@@ -2420,7 +2498,10 @@ def main():
                 fn = ptxas.setdefault(ln.split("'")[1], [])
             elif "registers" in ln or "spill" in ln:
                 fn.append(ln.replace("ptxas info    :", "").strip())
-    emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_built = native.native_available()  # the C++ framepipe, with g++; phase 19 fails without it
+    emit("build", seconds=seconds, native_built=native_built, native_seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     net_hw = compute_resize_shape(480, 640, DPT_PREPROCESS)
@@ -2479,6 +2560,7 @@ def main():
     frame = SyntheticSource(1, 480, 640).read()[1]
     profile_frames(est, frame)
     profile_frames(bf16_mode(est, frame, 0.05, DPT_PER_PROGRAM), frame, "bf16_profile")
+    native_launches = run_native(est)
 
     # the fused iris/pose + depth path on the same DPT_Large
     weights = detector_weights(seed=0)
@@ -2585,8 +2667,8 @@ def main():
                 "detection": detection_launches, "tflite": tflite_launches, "staged_iris": staged_launches,
                 "server": server_launches,
                 "fused_server": fused_server_launches, "multistream": multistream_launches,
-                "train": train_launches, "midas_train_step": midas_train_launches, **export_launches,
-                **parallel_launches}
+                "train": train_launches, "midas_train_step": midas_train_launches, "native_stream": native_launches,
+                **export_launches, **parallel_launches}
 
     def entry(name, source, replaces, row, path_launches, paths, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2598,7 +2680,7 @@ def main():
         entry("multi_head_attention", "depth_estimation_tpu_torch/csrc/attention.cu",
               "depth_estimation_tpu/ops/pallas/attention.py:34", att, launches,
               ("dpt_large", "dpt_hybrid", "fused_iris", "tflite", "staged_iris", "server", "fused_server",
-               "multistream",
+               "multistream", "native_stream",
                "train", "export_dpt_large", "export_dpt_large_b4", "export_fused", *parallel_launches),
               grad=grad_rows["multi_head_attention"],
               bound_peak=att["bound_peak"], fma_bound_ms=att["fma_bound_ms"], bf16_ms=att16["ms"],

@@ -19,9 +19,8 @@ Over a mesh of ranks (``parallel.mesh.make_mesh``), every rank calls the
 same method: ``predict_batch_sharded`` runs the rank's dp slice of a batch
 and all-gathers the maps over dp, ``predict_sharded`` runs one frame with
 the transformer matmuls tensor-parallel over tp, and ``predict_spatial``
-one frame of a conv family with the rows of every layer cut over a mesh
-axis (``parallel/spatial.py``). Each returns the whole result on every
-rank.
+one frame with the rows of every layer cut over a mesh axis
+(``parallel/spatial.py``). Each returns the whole result on every rank.
 """
 
 from __future__ import annotations
@@ -270,11 +269,13 @@ class DepthEstimator:
         ranks, and every layer's output rows after them, each rank fetching
         the halo rows its convolutions, upsamplings and resizes read from the
         ranks that own them (``parallel/spatial.py``): K2 and K3 on row
-        windows, K4 on halo'd slabs. The weights are replicated; the whole
-        (H, W) float32 map comes back on every rank. The source height must
-        divide by the axis size (``ValueError``). MiDaS v2.1 and MiDaS_small
-        run so; the DPT families raise ``NotImplementedError`` (ROADMAP queue
-        A, slice 18)."""
+        windows, K4 on halo'd slabs. The DPT families cut their patch rows
+        the same way (DPT_Hybrid's stem too, its GroupNorms' statistics
+        summed over the axis) and run the ViT's blocks sequence-parallel over
+        the axis's group, K1 on each rank's queries against the gathered
+        keys. The weights are replicated; the whole (H, W) float32 map comes
+        back on every rank. The source height must divide by the axis size
+        (``ValueError``). All four families run so."""
         from depth_estimation_tpu_torch.parallel.mesh import axis_size
         from depth_estimation_tpu_torch.parallel.spatial import RowWorld, spatial_depth
 

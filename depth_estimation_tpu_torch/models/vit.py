@@ -198,18 +198,25 @@ class ViT(nn.Module):
             return checkpoint(self.blocks[i], tokens, seq, use_reentrant=False)
         return self.blocks[i](tokens, seq)
 
-    def forward(self, x):
-        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw)).
-        Under sequence parallelism the blocks run on this rank's tokens and
-        the hooks come back whole."""
-        levels, tokens, grid = self.embed(x)
+    def trunk(self, tokens, group=None):
+        """The blocks on the whole embedded tokens (B, N, C) → [tokens (B, N,
+        C) per hook], whole. ``group``: the blocks run sequence-parallel over
+        it, on this rank's share of the tokens (``parallel/spatial.py``
+        passes its axis's group here, and leaves ``sp_group`` alone)."""
         seq = None
-        if self.sp_group is not None:
-            seq = seq_shards(self.sp_group, tokens.shape[1])
+        if group is not None:
+            seq = seq_shards(group, tokens.shape[1])
             tokens = scatter_tokens(tokens, seq)
         hooked = {}
         for i in range(len(self.blocks)):
             tokens = self.run_block(i, tokens, seq)
             if i in self.hooks:
                 hooked[i] = tokens if seq is None else gather_tokens(tokens, seq)
-        return levels, [hooked[i] for i in self.hooks], grid
+        return [hooked[i] for i in self.hooks]
+
+    def forward(self, x):
+        """x: (B, 3, H, W) → ([conv maps], [tokens (B, 1 + gh·gw, C) per hook], (gh, gw)).
+        Under sequence parallelism the blocks run on this rank's tokens and
+        the hooks come back whole."""
+        levels, tokens, grid = self.embed(x)
+        return levels, self.trunk(tokens, self.sp_group), grid

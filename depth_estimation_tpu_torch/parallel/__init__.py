@@ -21,9 +21,10 @@ collectives written out. The pieces:
   it);
 * ``pipeline`` — the GPipe schedule of the ViT trunk over the mesh's ``pp``
   axis, differentiable through its sends, receives and hook gather;
-* ``spatial``  — one frame of a conv family (MiDaS v2.1, MiDaS_small) with
-  every layer's rows cut over a mesh axis and halo rows exchanged between
-  neighbours (``DepthEstimator.predict_spatial``);
+* ``spatial``  — one frame of any of the four families with every layer's
+  rows cut over a mesh axis and halo rows exchanged between neighbours, the
+  DPT families' ViT blocks sequence-parallel over the same axis
+  (``DepthEstimator.predict_spatial``);
 * ``dryrun``   — ``dryrun_multichip``, one step of each of the six
   multi-device programs on a tiny DPT and a tiny MiDaS v2.1.
 """

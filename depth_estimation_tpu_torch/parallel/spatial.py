@@ -3,16 +3,17 @@
 The JAX package shards the source frame's rows over a mesh axis and lets
 GSPMD propagate the sharding through the frame program, inserting the halo
 exchanges each convolution needs. Here the same is written out, layer by
-layer, for the two conv families (MiDaS v2.1 and MiDaS_small):
+layer, for the four families (MiDaS v2.1, MiDaS_small, DPT_Large and
+DPT_Hybrid):
 
 * every layer's output rows are cut over the axis's ranks as evenly as their
   count allows (``row_bounds``; a rank may own none: tiny v2.1 at 64×96 over
   8 ranks leaves 2 rows at stride 32);
 * for its output rows, a rank works out the input rows they read, from the
-  kernel, stride and pads (convolutions, the max pool), or from the tap
-  tables (the 2× bilinear upsampling, kernels K2 and K3), and fetches the
-  rows it lacks from the ranks that own them: neighbours' edge rows, never
-  the whole tensor (``RowWorld.fetch``);
+  kernel, stride and pads (convolutions, the max pools, the transposed
+  convs), or from the tap tables (the 2× bilinear upsampling, kernels K2
+  and K3), and fetches the rows it lacks from the ranks that own them:
+  neighbours' edge rows, never the whole tensor (``RowWorld.fetch``);
 * it then computes its rows from that slab: a convolution pads the slab's
   columns as the layer does and its rows only at the frame's own edges; K4
   runs on the slab with one halo row on each side and keeps the interior
@@ -20,18 +21,26 @@ layer, for the two conv families (MiDaS v2.1 and MiDaS_small):
   computes wrong at the slab's inner edges are dropped); the upsampling
   takes its taps from the global row index; K2 and K3 run on output-row
   windows (``ops/kernels/resize.py``); batch norm, ReLU, ReLU6 and the
-  residual adds are row-local.
+  residual adds are row-local; GroupNorm (DPT_Hybrid's ResNetV2 stem) takes
+  its statistics over the axis (``RowWorld.sum``).
+
+The DPT families cut the patch rows: the patch embedding (DPT_Large's
+stride-16 conv, or DPT_Hybrid's stem and 1×1 projection) runs by the rules
+above; each rank flattens its patch rows to tokens with its rows of the
+position embedding, rank 0 leading with the cls token; the tokens are
+gathered whole and the ViT's blocks run sequence-parallel over the axis's
+own group (``ViT.trunk``: each rank's share of the tokens, K1 on its local
+queries against the gathered K/V, the hooks gathered whole); each rank
+reassembles its grid rows of the hooks, and the decoder runs by the rules.
 
 Each operation is so an exchange and a compute on (local slab, halo rows).
 A ``RowWorld`` over a mesh axis holds one rank in each process and exchanges
 rows point to point (``torch.distributed.batch_isend_irecv``); a local
 ``RowWorld`` holds every rank in one process and fetches by slicing the whole
 tensor, so the compute half runs alone on one card (chip_smoke's
-``parallel_sp`` phase). The weights are replicated.
-
-The DPT families are not partitioned here (``NotImplementedError``): their
-spatial program (patch rows over the axis, the sequence-parallel trunk, a
-halo decoder) is ROADMAP queue A's slice 18.
+``parallel_sp`` phase); there the ViT's blocks run on the whole tokens. The
+weights are replicated. A module without a rule raises
+``NotImplementedError``, so that nothing runs unpartitioned by mistake.
 """
 
 from __future__ import annotations
@@ -45,12 +54,16 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from depth_estimation_tpu_torch.models.dpt import DPT, Reassemble
 from depth_estimation_tpu_torch.models.layers import (Conv2dSame, DepthwiseSeparable, FrozenBatchNorm2d,
                                                       InvertedResidual, same_pads)
 from depth_estimation_tpu_torch.models.midas_small import (FeatureFusionBlock, MidasSmall, ResidualConvUnit,
                                                            UpsampleConv3x3)
 from depth_estimation_tpu_torch.models.midas_v21 import (FeatureFusionBlockV21, GroupedConv3x3, MidasV21,
                                                          ResNeXtBottleneck)
+from depth_estimation_tpu_torch.models.resnetv2 import Bottleneck as ResNetV2Bottleneck
+from depth_estimation_tpu_torch.models.resnetv2 import GroupNormAct, ResNetV2Stem, StdConv, standardize
+from depth_estimation_tpu_torch.models.vit import HybridEmbed, ViT, resize_pos_embed
 from depth_estimation_tpu_torch.ops.kernels.grouped_conv import grouped_conv3x3
 from depth_estimation_tpu_torch.ops.kernels.resize import (_device_taps, band_taps, fused_preprocess, resize_planes,
                                                            window_rows)
@@ -59,10 +72,6 @@ from depth_estimation_tpu_torch.parallel.mesh import axis_rank, axis_size
 from depth_estimation_tpu_torch.parallel.ops import token_counts
 
 Span = Tuple[int, int]
-
-SLICE_18 = ("predict_spatial runs the conv families (MiDaS v2.1, MiDaS_small); the DPT families' spatial program "
-            "(patch rows over the axis, the sequence-parallel trunk, a halo decoder) is ROADMAP queue A's "
-            "slice 18")
 
 
 def row_bounds(n_rows: int, size: int) -> List[Span]:
@@ -77,6 +86,10 @@ class Rows:
 
     def __init__(self, parts: Dict[int, torch.Tensor], height: int, dim: int):
         self.parts, self.height, self.dim = parts, height, dim
+
+    @property
+    def width(self) -> int:
+        return next(iter(self.parts.values())).shape[-1]
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Rows":
         """A row-local operation on every part, empty ones too."""
@@ -151,17 +164,28 @@ class RowWorld:
             return {}
         return {me: pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)}
 
-    def gather(self, x: Rows) -> torch.Tensor:
-        """The whole tensor, on every rank."""
+    def gather(self, x: Rows, bounds: Optional[Sequence[Span]] = None) -> torch.Tensor:
+        """The whole tensor, on every rank. ``bounds``: each rank's [a, b)
+        along ``x.dim``, where they are not ``row_bounds(x.height, size)``."""
         if self.group is None:
             return torch.cat([x.parts[r] for r in range(self.size)], x.dim)
-        counts = token_counts(x.height, self.size)
+        counts = token_counts(x.height, self.size) if bounds is None else [b - a for a, b in bounds]
         part = x.parts[self.ranks[0]].movedim(x.dim, 0).contiguous()
         padded = part.new_zeros((max(counts), *part.shape[1:]))
         padded[:part.shape[0]] = part
         outs = [torch.empty_like(padded) for _ in range(self.size)]
         dist.all_gather(outs, padded, group=self.group)
         return torch.cat([o[:c] for o, c in zip(outs, counts)], 0).movedim(0, x.dim)
+
+    def sum(self, parts: Dict[int, torch.Tensor]) -> torch.Tensor:
+        """The sum over the axis of one tensor a rank (``parts[r]`` for each
+        rank r of this process, all of one shape), on every rank: over a
+        group an all-reduce, in one process the sum of the parts."""
+        if self.group is None:
+            return torch.stack([parts[r] for r in range(self.size)]).sum(0)
+        total = parts[self.ranks[0]].clone()
+        dist.all_reduce(total, group=self.group)
+        return total
 
 
 def _layer(world: RowWorld, x: Rows, out_height: int, need: Callable[[int, int], Span],
@@ -187,7 +211,7 @@ def _windowed(world: RowWorld, x: Rows, k: int, stride: int, pads_h: Span, pads_
     ``pads_w``: ``fn`` on each rank's slab, padded by ``pad_value`` in its
     columns and, at the frame's top and bottom, in its rows."""
     height = (x.height + sum(pads_h) - k) // stride + 1
-    w_out = (next(iter(x.parts.values())).shape[3] + sum(pads_w) - k) // stride + 1
+    w_out = (x.width + sum(pads_w) - k) // stride + 1
 
     def need(r0, r1):
         return r0 * stride - pads_h[0], (r1 - 1) * stride - pads_h[0] + k
@@ -222,11 +246,54 @@ def conv_module(world: RowWorld, x: Rows, m: nn.Conv2d) -> Rows:
     return conv(world, x, m.weight, m.bias, s, (ph, ph), (pw, pw), m.groups)
 
 
-def conv_same(world: RowWorld, x: Rows, m: Conv2dSame) -> Rows:
-    """TF-SAME padding from the global height and width (``layers.same_pads``)."""
-    w_in = next(iter(x.parts.values())).shape[3]
-    k, s = m.weight.shape[-1], m.stride[0]
-    return conv(world, x, m.weight, m.bias, s, same_pads(x.height, k, s), same_pads(w_in, k, s), m.groups)
+def conv_same(world: RowWorld, x: Rows, m: nn.Conv2d, weight: Optional[torch.Tensor] = None) -> Rows:
+    """TF-SAME padding from the global height and width (``layers.same_pads``),
+    with ``weight`` in place of the layer's where given (``StdConv``'s
+    standardized kernel)."""
+    weight = m.weight if weight is None else weight
+    k, s = weight.shape[-1], m.stride[0]
+    return conv(world, x, weight, m.bias, s, same_pads(x.height, k, s), same_pads(x.width, k, s), m.groups)
+
+
+def conv_transpose(world: RowWorld, x: Rows, m: nn.ConvTranspose2d) -> Rows:
+    """A transposed conv whose kernel equals its stride s, without padding
+    (DPT's reassemble, s = 4 and 2): input row i alone makes output rows
+    s·i … s·i + s − 1, so a rank's output rows [o0, o1) come from input rows
+    [⌊o0/s⌋, ⌈o1/s⌉), and the slab's output rows outside them are dropped."""
+    if (m.kernel_size != m.stride or m.padding != (0, 0) or m.output_padding != (0, 0)
+            or m.dilation != (1, 1) or m.groups != 1):
+        raise NotImplementedError(f"no row rule for {m}")
+    s = m.stride[0]
+
+    def compute(slab, span, out):
+        return F.conv_transpose2d(slab, m.weight, m.bias, m.stride)[:, :, out[0] - s * span[0]:out[1] - s * span[0]]
+
+    def empty(part):
+        return part.new_empty((part.shape[0], m.out_channels, 0, part.shape[3] * m.stride[1]))
+
+    return _layer(world, x, s * x.height, lambda r0, r1: (r0 // s, -(-r1 // s)), compute, empty)
+
+
+def group_norm(world: RowWorld, x: Rows, m: nn.GroupNorm) -> Rows:
+    """GroupNorm of the whole frame on NCHW rows: each group's mean from
+    every rank's sums over its rows, summed over the axis, then its variance
+    from the sums of squared deviations from that mean, in float64 (two
+    passes: E[x²] − E[x]² would cancel); then, row-local, x·scale + shift
+    with scale = weight / √(var + eps) and shift = bias − mean·scale."""
+    b, c = next(iter(x.parts.values())).shape[:2]
+    g = m.num_groups
+    count = c // g * x.height * x.width
+
+    def grouped(t):
+        return t.double().reshape(b, g, -1)
+
+    mean = world.sum({r: grouped(t).sum(2) for r, t in x.parts.items()}) / count
+    var = world.sum({r: (grouped(t) - mean[..., None]).square().sum(2) for r, t in x.parts.items()}) / count
+    scale = torch.rsqrt(var + m.eps).repeat_interleave(c // g, 1) * m.weight
+    shift = m.bias - mean.repeat_interleave(c // g, 1) * scale
+    dtype = torch.promote_types(next(iter(x.parts.values())).dtype, torch.float32)  # bf16's affine in f32
+    scale, shift = (v.to(dtype)[:, :, None, None] for v in (scale, shift))
+    return x.map(lambda t: (t.to(dtype) * scale + shift).to(t.dtype))
 
 
 def grouped_conv(world: RowWorld, x: Rows, m: GroupedConv3x3) -> Rows:
@@ -303,7 +370,7 @@ def preprocess_rows(world: RowWorld, frames: Rows, net_hw: Tuple[int, int], mean
                   empty)
 
 
-# -- the conv families, layer by layer ----------------------------------------
+# -- the families, layer by layer ----------------------------------------------
 
 
 def _bottleneck(world, x, m: ResNeXtBottleneck):
@@ -311,6 +378,14 @@ def _bottleneck(world, x, m: ResNeXtBottleneck):
     h = conv_module(world, x, m.conv1).map(lambda t: F.relu(m.bn1(t)))
     h = grouped_conv(world, h, m.conv2).map(lambda t: F.relu(m.bn2(t)))
     h = conv_module(world, h, m.conv3).map(m.bn3)
+    return (h + sc).map(F.relu)
+
+
+def _resnetv2_bottleneck(world, x, m: ResNetV2Bottleneck):
+    sc = x if m.downsample is None else apply(world, m.downsample, x)
+    h = apply(world, m.norm1, apply(world, m.conv1, x))
+    h = apply(world, m.norm2, apply(world, m.conv2, h))
+    h = apply(world, m.norm3, apply(world, m.conv3, h))
     return (h + sc).map(F.relu)
 
 
@@ -333,7 +408,7 @@ def _residual_conv_unit(world, x, m: ResidualConvUnit):
 
 
 def _fusion(world, m, x, skip=None):
-    """``FeatureFusionBlock`` (MiDaS_small, with its 1×1 ``out_conv``) or ``FeatureFusionBlockV21``."""
+    """``FeatureFusionBlock`` (MiDaS_small and DPT, with its 1×1 ``out_conv``) or ``FeatureFusionBlockV21``."""
     h = x if skip is None else x + _residual_conv_unit(world, skip, m.resConfUnit1)
     h = _residual_conv_unit(world, h, m.resConfUnit2)
     if isinstance(m, FeatureFusionBlock):
@@ -345,7 +420,7 @@ _ROW_LOCAL = (FrozenBatchNorm2d, nn.ReLU, nn.ReLU6, nn.Identity)
 
 
 def apply(world: RowWorld, m: nn.Module, x: Rows) -> Rows:
-    """``m(x)`` on NCHW rows, for the modules of the two conv families; any
+    """``m(x)`` on NCHW rows, for the modules of the four families; any
     other module raises, so that none runs unpartitioned by mistake."""
     if isinstance(m, nn.Sequential):
         for child in m:
@@ -353,47 +428,133 @@ def apply(world: RowWorld, m: nn.Module, x: Rows) -> Rows:
         return x
     if isinstance(m, _ROW_LOCAL):
         return x.map(m)
+    if isinstance(m, GroupNormAct):
+        h = group_norm(world, x, m)
+        return h.map(F.relu) if m.act else h
     if isinstance(m, UpsampleConv3x3):
         return conv_module(world, upsample2x(world, x, m.align_corners), m)
     if isinstance(m, GroupedConv3x3):
         return grouped_conv(world, x, m)
+    if isinstance(m, StdConv):
+        return conv_same(world, x, m, standardize(m.weight))
     if isinstance(m, Conv2dSame):
         return conv_same(world, x, m)
     if isinstance(m, nn.Conv2d):
         return conv_module(world, x, m)
+    if isinstance(m, nn.ConvTranspose2d):
+        return conv_transpose(world, x, m)
     if isinstance(m, nn.MaxPool2d):
         p = m.padding if isinstance(m.padding, int) else m.padding[0]
         if m.ceil_mode or m.dilation not in (1, (1, 1)):
             raise NotImplementedError(f"no row rule for {m}")
         return max_pool(world, x, m.kernel_size, m.stride, (p, p), (p, p))
-    for kind, rule in ((ResNeXtBottleneck, _bottleneck), (DepthwiseSeparable, _depthwise_separable),
-                       (InvertedResidual, _inverted_residual), (ResidualConvUnit, _residual_conv_unit)):
+    for kind, rule in ((ResNeXtBottleneck, _bottleneck), (ResNetV2Bottleneck, _resnetv2_bottleneck),
+                       (DepthwiseSeparable, _depthwise_separable), (InvertedResidual, _inverted_residual),
+                       (ResidualConvUnit, _residual_conv_unit)):
         if isinstance(m, kind):
             return rule(world, x, m)
     raise NotImplementedError(f"no row rule for {type(m).__name__}")
 
 
+def _resnetv2(world, m: ResNetV2Stem, x: Rows) -> Tuple[Rows, List[Rows]]:
+    """DPT_Hybrid's stem (``ResNetV2Stem.forward``): the stem conv, its
+    GroupNorm and the TF-SAME 3×3/2 max pool, then the three stages →
+    (stage 3's rows, [stage 1's, stage 2's])."""
+    h = apply(world, m.stem.norm, apply(world, m.stem.conv, x))
+    h = max_pool(world, h, 3, 2, same_pads(h.height, 3, 2), same_pads(h.width, 3, 2))
+    outs = []
+    for stage in m.stages:
+        h = apply(world, stage.blocks, h)
+        outs.append(h)
+    return outs[-1], outs[:-1]
+
+
+def embed_tokens(world: RowWorld, vit: ViT, patches: Rows) -> torch.Tensor:
+    """The ViT's tokens (B, 1 + gh·gw, C), whole on every rank: each rank
+    flattens its patch rows to tokens and adds its rows of the position
+    embedding (resized once, whole), rank 0 leading with the cls token;
+    then the ranks' tokens are gathered."""
+    gh, gw = patches.height, patches.width
+    pos = resize_pos_embed(vit.pos_embed, (gh, gw), vit.orig_grid)
+    spans = [(0 if r == 0 else 1 + r0 * gw, 1 + r1 * gw) for r, (r0, r1) in enumerate(row_bounds(gh, world.size))]
+    parts = {}
+    for r, t in patches.parts.items():
+        tokens = t.flatten(2).transpose(1, 2)
+        if r == 0:
+            tokens = torch.cat([vit.cls_token.expand(t.shape[0], -1, -1), tokens], 1)
+        parts[r] = tokens + pos[:, spans[r][0]:spans[r][1]]
+    return world.gather(Rows(parts, 1 + gh * gw, 1), spans)
+
+
+def reassemble(world: RowWorld, m: Reassemble, hook: torch.Tensor, grid: Tuple[int, int]) -> Rows:
+    """DPT's reassemble of the whole hook tokens on each rank's grid rows:
+    the readout folds the cls token (token 0) into each token, so it and the
+    1×1 projection are row-local; then the resample's rule."""
+    gh, gw = grid
+    bounds = row_bounds(gh, world.size)
+    parts = {}
+    for r in world.ranks:
+        r0, r1 = bounds[r]
+        t = m._modules["0"](torch.cat([hook[:, :1], hook[:, 1 + r0 * gw:1 + r1 * gw]], 1))
+        parts[r] = t.transpose(1, 2).reshape(t.shape[0], t.shape[2], r1 - r0, gw)
+    return apply(world, m._modules["4"], apply(world, m._modules["3"], Rows(parts, gh, 2)))
+
+
+def _decoder(world, s: nn.Module, layers: Sequence[Rows]) -> Rows:
+    """The four ``layer*_rn`` convs, the four fusion blocks and the head on
+    the pyramid's four levels → (B, H, W) rows."""
+    rn = [apply(world, getattr(s, f"layer{i + 1}_rn"), layers[i]) for i in range(4)]
+    p4 = _fusion(world, s.refinenet4, rn[3])
+    p3 = _fusion(world, s.refinenet3, p4, rn[2])
+    p2 = _fusion(world, s.refinenet2, p3, rn[1])
+    p1 = _fusion(world, s.refinenet1, p2, rn[0])
+    out = apply(world, s.output_conv, p1)
+    return Rows({r: t[:, 0] for r, t in out.parts.items()}, out.height, 1)
+
+
+def _dpt(world, model: DPT, x: Rows) -> Rows:
+    """``DPT.forward`` on rows: the patch embedding (DPT_Hybrid's stem and
+    projection, or DPT_Large's stride-16 conv), the tokens, the ViT's blocks
+    over the axis's group (``ViT.trunk``; whole in a local world), each
+    hook reassembled on the ranks' grid rows, and the decoder."""
+    vit = model.pretrained.model
+    embed = vit.patch_embed
+    if isinstance(embed, HybridEmbed):
+        feats, levels = _resnetv2(world, embed.backbone, x)
+    else:
+        if x.height % embed.patch or x.width % embed.patch:
+            raise ValueError(f"input {x.height}x{x.width} not a multiple of patch {embed.patch}")
+        feats, levels = x, []
+    patches = apply(world, embed.proj, feats)
+    hooked = vit.trunk(embed_tokens(world, vit, patches), world.group)
+    grid = (patches.height, patches.width)
+    return _decoder(world, model.scratch, levels + [
+        reassemble(world, getattr(model.pretrained, f"act_postprocess{len(levels) + i + 1}"), t, grid)
+        for i, t in enumerate(hooked)])
+
+
+_FAMILIES = (MidasV21, MidasSmall, DPT)
+
+
 def _check_family(model: nn.Module) -> None:
-    if not isinstance(model, (MidasV21, MidasSmall)):
-        raise NotImplementedError(f"{type(model).__name__}: {SLICE_18}")
+    if not isinstance(model, _FAMILIES):
+        raise NotImplementedError(f"{type(model).__name__}: no spatial program (predict_spatial runs DPT_Large, "
+                                  "DPT_Hybrid, MiDaS v2.1 and MiDaS_small)")
 
 
 def forward_rows(world: RowWorld, model: nn.Module, x: Rows) -> Rows:
-    """The network's forward on (B, 3, H, W) rows → (B, H, W) rows: the
-    encoder's four taps, the four fusion blocks and the head, as
-    ``MidasV21.forward`` and ``MidasSmall.forward`` run them."""
+    """The network's forward on (B, 3, H, W) rows → (B, H, W) rows: for the
+    conv families the encoder's four taps, for DPT its patch rows, tokens and
+    reassembled hooks (``_dpt``), then the four fusion blocks and the head,
+    as the families' forwards run them."""
     _check_family(model)
-    pre, s = model.pretrained, model.scratch
+    if isinstance(model, DPT):
+        return _dpt(world, model, x)
+    pre = model.pretrained
     l1 = apply(world, pre.layer1, x)
     l2 = apply(world, pre.layer2, l1)
     l3 = apply(world, pre.layer3, l2)
-    l4 = apply(world, pre.layer4, l3)
-    p4 = _fusion(world, s.refinenet4, apply(world, s.layer4_rn, l4))
-    p3 = _fusion(world, s.refinenet3, p4, apply(world, s.layer3_rn, l3))
-    p2 = _fusion(world, s.refinenet2, p3, apply(world, s.layer2_rn, l2))
-    p1 = _fusion(world, s.refinenet1, p2, apply(world, s.layer1_rn, l1))
-    out = apply(world, s.output_conv, p1)
-    return Rows({r: t[:, 0] for r, t in out.parts.items()}, out.height, 1)
+    return _decoder(world, model.scratch, [l1, l2, l3, apply(world, pre.layer4, l3)])
 
 
 def spatial_forward(world: RowWorld, model: nn.Module, x: torch.Tensor) -> torch.Tensor:

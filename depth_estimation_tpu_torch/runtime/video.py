@@ -1,11 +1,13 @@
 """Video IO: capture sources and writers.
 
-A copy of the JAX package's ``runtime/video.py`` without the C++ framepipe
-(``runtime/native.py``), which this port does not take yet: sources and
-sinks are the Python ones. The reference drives cv2.VideoCapture/VideoWriter
-directly inside its stream loops (depth_midas.py:42-50). Here IO sits behind
-``FrameSource`` / ``FrameSink`` so the same streaming runtime serves:
+A copy of the JAX package's ``runtime/video.py``. The reference drives
+cv2.VideoCapture/VideoWriter directly inside its stream loops
+(depth_midas.py:42-50). Here IO sits behind ``FrameSource`` / ``FrameSink``
+so the same streaming runtime serves:
 
+* the C++ framepipe (``runtime/native.py``: its own decode thread and
+  zero-copy ring, an asynchronous MJPG writer), which ``open_source`` and
+  ``open_sink`` prefer where it is built, falling back to Python IO,
 * real video files / webcams (OpenCV),
 * a decode *thread* feeding a bounded queue (so decode overlaps device
   compute — the reference decodes serially in the hot loop),
@@ -100,21 +102,31 @@ class SyntheticSource(FrameSource):
         return True
 
 
-def open_source(src) -> FrameSource:
+def open_source(src, prefer_native: bool = True) -> FrameSource:
     """Resolve a source spec: a FrameSource, 'synthetic:<n>x<H>x<W>', or
-    anything cv2.VideoCapture opens."""
+    anything cv2.VideoCapture opens. Prefers the C++ framepipe decoder (its
+    own decode thread and zero-copy ring) where it is built and opens the
+    source; falls back to Python IO."""
     if isinstance(src, FrameSource):
         return src
+    if prefer_native and isinstance(src, str):
+        from depth_estimation_tpu_torch.runtime import native
+
+        if native.native_available():
+            ns = native.NativeSource(src)
+            if ns.is_opened():
+                return ns
     if isinstance(src, str) and src.startswith("synthetic:"):
         return SyntheticSource.from_spec(src)
     return OpenCVSource(src)
 
 
 def needs_prefetch(source: FrameSource) -> bool:
-    """Whether ``source`` wants a ``PrefetchSource`` decode thread. JAX's
-    native (C++) sources decode on their own thread; the port has none, so
-    every source does."""
-    return True
+    """Whether ``source`` wants a ``PrefetchSource`` decode thread: native
+    sources already decode on their own C++ thread."""
+    from depth_estimation_tpu_torch.runtime import native
+
+    return not isinstance(source, native.NativeSource)
 
 
 class PrefetchSource(FrameSource):
@@ -288,9 +300,19 @@ class NullSink(FrameSink):
         self.last_frame = frame
 
 
-def open_sink(output, size_wh: Tuple[int, int], fps: int = 20) -> FrameSink:
+def open_sink(output, size_wh: Tuple[int, int], fps: int = 20, prefer_native: bool = True) -> FrameSink:
+    """None → a ``NullSink``; a path → the C++ framepipe's asynchronous MJPG
+    writer where it is built with OpenCV, else cv2.VideoWriter."""
     if output is None:
         return NullSink()
     if isinstance(output, FrameSink):
         return output
+    if prefer_native:
+        from depth_estimation_tpu_torch.runtime import native
+
+        if native.native_available():
+            try:
+                return native.NativeSink(output, size_wh, fps=fps)
+            except RuntimeError:
+                pass
     return OpenCVSink(output, size_wh, fps=fps)

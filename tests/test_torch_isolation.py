@@ -71,3 +71,21 @@ def test_tflite_route_needs_no_flatbuffers():
     r = subprocess.run([sys.executable, "-c", _TFLITE_WITHOUT_FLATBUFFERS], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+_NATIVE_IMPORT = """
+import sys
+from depth_estimation_tpu_torch.runtime import native, video
+bad = sorted(n for n in sys.modules if n.split(".")[0] in {forbidden})
+assert not bad, bad
+assert not native._LIBS and not native._LOAD_ERRORS, "importing the bindings built or loaded a library"
+assert native.SOURCE.is_file() and native.SOURCE.is_relative_to(native.kernel_build.BUILD_DIR.parent)
+"""
+
+
+def test_native_bindings_import_no_jax_and_build_nothing():
+    """``runtime/native.py`` imports none of the JAX package (the port keeps
+    its own ``native/framepipe.cpp``) and builds at first use, not at import."""
+    code = _NATIVE_IMPORT.format(forbidden=set(FORBIDDEN))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

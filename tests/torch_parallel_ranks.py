@@ -20,6 +20,9 @@ from depth_estimation_tpu_torch.registry import ModelEntry, register
 
 # the preprocess of the JAX package's TP tests: the tiny nets' 64×64 grid
 TINY_PREPROCESS = dict(target_height=64, target_width=64, keep_aspect_ratio=False, ensure_multiple_of=32)
+# the DPT families' spatial tests: 120×160 frames to a 96×128 network input, a 6×8 patch grid, so that 2
+# of 8 ranks own no patch rows (and 5 no rows of the hybrid's stride-32 level)
+SPATIAL_DPT_PREPROCESS = dict(target_height=96, target_width=128, keep_aspect_ratio=False, ensure_multiple_of=32)
 
 
 def numpy_dict(tensors):
@@ -38,8 +41,8 @@ def dpt(fields, hub_sd=None, seed=0):
     return model
 
 
-def estimator(name, make_model, params):
-    register(ModelEntry(name, make_model, PreprocessConfig(**TINY_PREPROCESS)))
+def estimator(name, make_model, params, preprocess=TINY_PREPROCESS):
+    register(ModelEntry(name, make_model, PreprocessConfig(**preprocess)))
     return DepthEstimator(name, params=params, seed=0, verbose=False, device="cpu")
 
 
@@ -264,10 +267,12 @@ def sp_world(rank, fields, hub_sd, x, gt, lr):
 
 # -- spatial partitioning -----------------------------------------------------
 
-def spatial_world(rank, v21_fields, v21_sd, x, small_sd, img):
+def spatial_world(rank, v21_fields, v21_sd, x, small_sd, img, dpts, dpt_img):
     """Eight ranks: tiny MiDaS v2.1's forward with every layer's rows cut
     over tp = 8 and tp = 4 (two dp replicas), MiDaS_small's
-    ``predict_spatial`` over tp = 8, and the two refusals."""
+    ``predict_spatial`` over tp = 8, the tiny DPT's and tiny hybrid's
+    (``dpts``: name → (DPTConfig fields, state dict)) over tp = 8 and 4, and
+    the height refusal."""
     from depth_estimation_tpu_torch.models.midas_v21 import MidasV21, MidasV21Config
     from depth_estimation_tpu_torch.parallel.spatial import RowWorld, spatial_forward
 
@@ -284,14 +289,9 @@ def spatial_world(rank, v21_fields, v21_sd, x, small_sd, img):
         est.predict_spatial(np.zeros((97, *img.shape[1:]), np.uint8), meshes[8])
     except ValueError as e:
         out["tall_error"] = str(e)
-    dpt_est = estimator("TinyDPT_spatial_test", lambda: DPT(DPTConfig(**DRYRUN_DPT)), None)
-    try:
-        dpt_est.predict_spatial(img, meshes[4])
-    except NotImplementedError as e:
-        out["dpt_error"] = str(e)
+    for name, (fields, sd) in dpts.items():
+        dpt_est = estimator(name, lambda fields=fields: DPT(DPTConfig(**fields)), sd, SPATIAL_DPT_PREPROCESS)
+        for n, mesh in meshes.items():
+            out[f"{name}_tp{n}"] = dpt_est.predict_spatial(dpt_img, mesh)
     return out
 
-
-# a DPT with 64-wide heads, as parallel/dryrun.py's
-DRYRUN_DPT = dict(embed_dim=128, depth=2, num_heads=2, hooks=(0, 0, 1, 1), reassemble_channels=(16, 32, 64, 64),
-                  features=32, img_size=64)
