@@ -41,6 +41,7 @@ from depth_estimation_tpu_torch.models.layers import FrozenBatchNorm2d, PReLU
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess, resize_planes
 from depth_estimation_tpu_torch.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.registry import get_entry
+from depth_estimation_tpu_torch.runtime import tracing
 from depth_estimation_tpu_torch.utils import checkpoint
 from depth_estimation_tpu_torch.utils.debug import check_depth_output, check_frame_input
 
@@ -143,6 +144,15 @@ class DepthEstimator:
             imgs = torch.from_numpy(np.ascontiguousarray(imgs))
         return imgs.to(self.device, non_blocking=True).contiguous()
 
+    def _program(self, imgs, output: str = "f32") -> torch.Tensor:
+        """The frame program on host (or device) u8 BGR frames (B, H, W, 3):
+        the copy to the device, then ``_run``. Its spans time the host's
+        enqueue, not the device's work."""
+        with tracing.span("program", rows=len(imgs)):
+            with tracing.span("program.upload"):
+                imgs = self._to_device(imgs)
+            return self._run(imgs, output)
+
     def _run(self, imgs: torch.Tensor, output: str = "f32", model: Optional[nn.Module] = None) -> torch.Tensor:
         """u8 BGR (B, H, W, 3) on the device → (B, H, W) float32 depth, or
         with output='u8' the reference's wrap-around uint8 cast of it
@@ -162,10 +172,13 @@ class DepthEstimator:
         in_hw = (int(imgs.shape[1]), int(imgs.shape[2]))
         cfg = self.preprocess_cfg
         net_hw = compute_resize_shape(*in_hw, cfg)
-        x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=bgr).to(self.dtype)
+        with tracing.span("program.k2"):
+            x = fused_preprocess(imgs, net_hw, cfg.mean, cfg.std, bgr_to_rgb=bgr).to(self.dtype)
         net = self.model if model is None else model
-        pred = (net(x) if params is None else functional_call(net, params, (x,))).float()  # (B, h, w)
-        return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
+        with tracing.span("program.network"):
+            pred = (net(x) if params is None else functional_call(net, params, (x,))).float()  # (B, h, w)
+        with tracing.span("program.k3"):
+            return resize_planes(pred, in_hw, "cubic", align_corners=False, output=output)
 
     def frame_fn(self, in_hw: Tuple[int, int], bgr: bool = True, output: str = "f32"):
         """The frame program at source size ``in_hw`` with the weights as an
@@ -208,19 +221,19 @@ class DepthEstimator:
         """BGR uint8 (H, W, 3) → float32 (H, W) relative inverse depth
         (reference: depth_midas.py:21-35)."""
         check_frame_input(img)
-        out = self._run(self._to_device(img[None])).cpu().numpy()[0]
+        out = self._program(img[None]).cpu().numpy()[0]
         check_depth_output(out, img.shape[:2])
         return out
 
     def predict_device(self, img) -> torch.Tensor:
         """Same as predict, but the (H, W) float32 map stays on the device."""
-        return self._run(self._to_device(img[None]))[0]
+        return self._program(img[None])[0]
 
     def predict_device_u8(self, img) -> torch.Tensor:
         """The depth map with the reference's raw uint8 cast (wraparound
         preserved) applied on the device, left there: the streaming loop's
         path, which copies H×W bytes back instead of 4·H×W."""
-        return self._run(self._to_device(img[None]), "u8")[0]
+        return self._program(img[None], "u8")[0]
 
     def predict_batch(self, imgs: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) BGR uint8 → (B, H, W) float32, one frame program."""
@@ -297,6 +310,6 @@ class DepthEstimator:
         def batch_fn(imgs):
             if tuple(imgs.shape[1:3]) != in_hw:
                 raise ValueError(f"batch of {tuple(imgs.shape[1:3])} frames given to the {in_hw} program")
-            return self._run(self._to_device(imgs), output)
+            return self._program(imgs, output)
 
         return batch_fn

@@ -30,6 +30,7 @@ front end would wrap.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -38,6 +39,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from depth_estimation_tpu_torch.runtime import tracing
 from depth_estimation_tpu_torch.runtime.fused import FusedFrameRunner
 from depth_estimation_tpu_torch.runtime.stream import FusedFetch
 
@@ -53,6 +55,7 @@ class _DynamicBatcher:
         self._q: queue.Queue = queue.Queue()
         self._lock = threading.Lock()
         self._closed = False
+        self._requests = itertools.count()
         self.batches_dispatched = 0
         self.frames_served = 0
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -71,7 +74,9 @@ class _DynamicBatcher:
         with self._lock:
             if self._closed:
                 raise RuntimeError("server is closed")
-            self._q.put((frame_u8.copy(), fut))  # the client may reuse its buffer
+            # the client may reuse its buffer; the request's number and submit
+            # time are for the dispatcher's server.queue span
+            self._q.put((frame_u8.copy(), fut, next(self._requests), time.perf_counter()))
         return fut
 
     def warm(self) -> None:
@@ -98,47 +103,62 @@ class _DynamicBatcher:
     # -- dispatcher ----------------------------------------------------------
 
     def _dispatch(self, frames):  # pragma: no cover - abstract
+        """Pad, run and fetch one batch: its outputs on the host."""
         raise NotImplementedError
 
-    def _collect(self) -> Optional[list]:
+    def _row(self, host, i):  # pragma: no cover - abstract
+        """Request ``i``'s result from the batch's host outputs."""
+        raise NotImplementedError
+
+    def _take(self, item, batch: int):
+        """Dequeue ``item`` for ``batch``: its server.queue span ends now."""
+        if item is not None:
+            tracing.emit("server.queue", item[3], time.perf_counter(), req=item[2], batch=batch)
+        return item
+
+    def _collect(self, batch: int) -> Optional[list]:
         """Block for the first request, then drain up to max_batch - 1 more,
         waiting at most max_delay_s for stragglers."""
-        first = self._q.get()
+        with tracing.span("server.idle", batch=batch):
+            first = self._take(self._q.get(), batch)
         if first is None:
             return None
         reqs = [first]
-        t_end = time.perf_counter() + self.max_delay_s
-        while len(reqs) < self.max_batch:
-            try:
-                item = self._q.get(timeout=max(0.0, t_end - time.perf_counter()))
-            except queue.Empty:
-                break
-            if item is None:
-                self._q.put(None)  # shut down after this batch
-                break
-            reqs.append(item)
+        with tracing.span("server.collect", batch=batch):
+            t_end = time.perf_counter() + self.max_delay_s
+            while len(reqs) < self.max_batch:
+                try:
+                    item = self._take(self._q.get(timeout=max(0.0, t_end - time.perf_counter())), batch)
+                except queue.Empty:
+                    break
+                if item is None:
+                    self._q.put(None)  # shut down after this batch
+                    break
+                reqs.append(item)
         return reqs
 
     def _loop(self) -> None:
-        while True:
-            reqs = self._collect()
+        for batch in itertools.count():
+            reqs = self._collect(batch)
             if reqs is None:
                 break
             # claim each future: resolving one that a client cancelled while
             # it was queued raises InvalidStateError and would end this thread
-            reqs = [(f, fut) for f, fut in reqs if fut.set_running_or_notify_cancel()]
+            reqs = [(f, fut) for f, fut, *_ in reqs if fut.set_running_or_notify_cancel()]
             if not reqs:
                 continue
-            try:
-                results = self._dispatch([f for f, _ in reqs])
-            except Exception as e:  # every waiter sees the failure; the thread serves on
-                for _, fut in reqs:
-                    fut.set_exception(e)
-                continue
-            self.batches_dispatched += 1
-            self.frames_served += len(reqs)
-            for res, (_, fut) in zip(results, reqs):
-                fut.set_result(res)
+            with tracing.span("server.dispatch", batch=batch, rows=len(reqs), padded=self.max_batch - len(reqs)):
+                try:
+                    host = self._dispatch([f for f, _ in reqs])
+                    with tracing.span("server.resolve", batch=batch):
+                        results = [self._row(host, i) for i in range(len(reqs))]
+                        self.batches_dispatched += 1
+                        self.frames_served += len(reqs)
+                        for res, (_, fut) in zip(results, reqs):
+                            fut.set_result(res)
+                except Exception as e:  # every waiter sees the failure; the thread serves on
+                    for _, fut in reqs:
+                        fut.set_exception(e)
         # shutdown: fail anything still queued
         while True:
             try:
@@ -150,7 +170,8 @@ class _DynamicBatcher:
 
     def _pad(self, frames) -> np.ndarray:
         """Pad to the one batch shape; the padded rows are discarded."""
-        return np.stack(frames + [frames[-1]] * (self.max_batch - len(frames)))
+        with tracing.span("server.pad"):
+            return np.stack(frames + [frames[-1]] * (self.max_batch - len(frames)))
 
 
 class DepthServer(_DynamicBatcher):
@@ -181,10 +202,14 @@ class DepthServer(_DynamicBatcher):
         return super().submit(frame_u8)
 
     def _dispatch(self, frames):
-        preds = self._fn(self._pad(frames)).cpu().numpy()
-        # copies: a row view would keep the whole padded batch alive for as
+        preds = self._fn(self._pad(frames))
+        with tracing.span("server.fetch"):
+            return preds.cpu().numpy()
+
+    def _row(self, host, i):
+        # a copy: a row view would keep the whole padded batch alive for as
         # long as its client keeps it
-        return [preds[i].copy() for i in range(len(frames))]
+        return host[i].copy()
 
 
 class FusedDepthServer(_DynamicBatcher):
@@ -215,8 +240,12 @@ class FusedDepthServer(_DynamicBatcher):
         return super().submit(frame_u8)
 
     def _dispatch(self, frames):
-        outs = FusedFetch(self._runner.batched(self._pad(frames))).result()
-        return [{k: np.array(v) for k, v in outs[i].items()} for i in range(len(frames))]
+        fetch = FusedFetch(self._runner.batched(self._pad(frames)))
+        with tracing.span("server.fetch"):
+            return fetch.result()
+
+    def _row(self, host, i):
+        return {k: np.array(v) for k, v in host[i].items()}
 
 
 class BucketedDepthServer:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from depth_estimation_tpu_torch.ops.postprocess import merge_gray3, side_by_side, to_video_frame
+from depth_estimation_tpu_torch.runtime import tracing
 from depth_estimation_tpu_torch.runtime.fused import IRIS_FIELDS, FusedFrameRunner, pack, unpack
 from depth_estimation_tpu_torch.runtime.logging_utils import JsonLogger
 from depth_estimation_tpu_torch.runtime.timing import StageTimer
@@ -118,13 +119,15 @@ class VidStream:
             self.log.close()
 
     def _update_per_frame(self):
-        inflight = deque()  # (fetch, n_frames, t_dispatch, cpu_dispatch)
+        inflight = deque()  # (fetch, n_frames, t_dispatch, cpu_dispatch, first frame index)
         while True:
             if not self.video.is_opened():
                 print("Error opening file.")
                 print(f"Sucessfully read {self.cnt} out of {self.video.frame_count} frames.")
                 break
-            self.status, self.frame = self.video.read()
+            first = self.cnt
+            with tracing.span("stream.read", frame=first, rows=1):
+                self.status, self.frame = self.video.read()
             if not self.status:
                 break
             self.cnt += 1
@@ -132,8 +135,9 @@ class VidStream:
                 print(f"Frame: {self.cnt}")
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = HostFetch(self.estimator.predict_device_u8(self.frame)[None])
-            inflight.append((fetch, 1, t0, time.process_time() - c0))
+            with tracing.span("stream.dispatch", frame=first, rows=1):
+                fetch = HostFetch(self.estimator.predict_device_u8(self.frame)[None])
+            inflight.append((fetch, 1, t0, time.process_time() - c0, first))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight)
         while inflight:
@@ -154,25 +158,28 @@ class VidStream:
                 break
             batch = np.empty((K, self.h, self.w, 3), np.uint8)
             m = 0
-            while m < K:
-                self.status, frame = self.video.read()
-                if not self.status:
-                    eof = True
-                    break
-                self.frame = frame
-                batch[m] = frame
-                m += 1
-                self.cnt += 1
-                if self.verbose:
-                    print(f"Frame: {self.cnt}")
+            first = self.cnt
+            with tracing.span("stream.read", frame=first, rows=K):
+                while m < K:
+                    self.status, frame = self.video.read()
+                    if not self.status:
+                        eof = True
+                        break
+                    self.frame = frame
+                    batch[m] = frame
+                    m += 1
+                    self.cnt += 1
+                    if self.verbose:
+                        print(f"Frame: {self.cnt}")
             if m == 0:
                 break
             if m < K:  # tail tick: pad with the last decoded frame (one
                 batch[m:] = batch[m - 1]  # program shape; padding discarded)
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = HostFetch(fn(batch))
-            inflight.append((fetch, m, t0, time.process_time() - c0))
+            with tracing.span("stream.dispatch", frame=first, rows=m):
+                fetch = HostFetch(fn(batch))
+            inflight.append((fetch, m, t0, time.process_time() - c0, first))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight)
         while inflight:
@@ -181,12 +188,14 @@ class VidStream:
     def _complete(self, inflight):
         """Wait for the oldest in-flight copy, record its frames' depth
         spans and write them."""
-        fetch, m, t0, cpu_d = inflight.popleft()
+        fetch, m, t0, cpu_d, first = inflight.popleft()
         c0 = time.process_time()
-        grays, = fetch.result()
+        with tracing.span("stream.fetch", frame=first, rows=m):
+            grays, = fetch.result()
         self.timer.record_completion("depth", t0, cpu_d + time.process_time() - c0, frames=m)
-        for i in range(m):
-            self._write_gray(grays[i])
+        with tracing.span("stream.write", frame=first, rows=m):
+            for i in range(m):
+                self._write_gray(grays[i])
 
     def _write_gray(self, gray):
         """gray→3ch and write (depth_midas.py:84-85); the uint8 cast already

@@ -31,7 +31,6 @@ class StageTimer:
     def __init__(self, stages=("iris", "body", "depth")):
         self.performance: Dict[str, List[float]] = {s: [] for s in stages}
         self.wall: Dict[str, List[float]] = {s: [] for s in stages}
-        # host-CPU share of async stages recorded via record_span
         self.cpu: Dict[str, List[float]] = {}
         # last record_completion timestamp per stage (overlap clamping)
         self._last_completion: Dict[str, float] = {}
@@ -51,17 +50,6 @@ class StageTimer:
         finally:
             self.performance[name].append(time.process_time() - c0)
             self.wall[name].append(time.perf_counter() - w0)
-
-    def record_span(self, name: str, wall_s: float, cpu_s: float = None) -> None:
-        """Record one ASYNC stage span: ``wall_s`` must cover dispatch →
-        value-ready (the fetch), so the reference-format FPS report states
-        frame completion throughput, not dispatch rate. ``cpu_s`` (optional)
-        is the host-CPU share, kept in ``self.cpu`` for diagnostics."""
-        self._ensure(name)
-        self.performance[name].append(wall_s)
-        self.wall[name].append(wall_s)
-        if cpu_s is not None:
-            self.cpu.setdefault(name, []).append(cpu_s)
 
     def record_completion(self, name: str, t_dispatch: float,
                           cpu_s: float = None, frames: int = 1) -> None:
