@@ -456,6 +456,53 @@ def check_grouped_conv(gen, layer, dtype, tol, timed, batch=1, groups=32):
     return row
 
 
+# The ViT's linear layers, (K, N, GELU): DPT_Large's qkv, proj, fc1 (GELU fused) and fc2 and its
+# readout projection (GELU fused; the patch tokens alone), DPT_Hybrid's ViT-B four
+VIT_LINEARS = {"qkv": (1024, 3072, False), "proj": (1024, 1024, False), "fc1": (1024, 4096, True),
+               "fc2": (4096, 1024, False), "readout": (2048, 1024, True),
+               "vit_b_qkv": (768, 2304, False), "vit_b_proj": (768, 768, False), "vit_b_fc1": (768, 3072, True),
+               "vit_b_fc2": (3072, 768, False)}
+LINEAR_ROWS = {1: 769, 4: 3076, 8: 6152}  # tokens × frames: webcam, the stream's microbatch, the servers' batch
+
+
+def check_linear(gen, layer, frames, timed):
+    """The f32 GEMM kernel at one of ``VIT_LINEARS``' layers over ``frames``
+    frames' tokens, against float64 (the ×30-scaled inputs of K1's and K4's
+    large cases: its error must be f32's, not TF32's) and against the plain
+    version; ms beside the plain version's, ``F.linear``'s (TF32 off) and the
+    3xTF32 bound."""
+    from depth_estimation_tpu_torch.ops.kernels.dense import linear, linear_plain, tiling
+
+    k, n, gelu = VIT_LINEARS[layer]
+    m = LINEAR_ROWS[frames] - (frames if layer == "readout" else 0)  # the readout drops the cls token
+    x = torch.randn((m, k), generator=gen, device="cuda") * 30
+    w = torch.randn((n, k), generator=gen, device="cuda") * (30 / math.sqrt(k))
+    b = torch.randn((n,), generator=gen, device="cuda")
+    before = linear.launches
+    got = linear(x, w, b, gelu)
+    torch.cuda.synchronize()
+    check(linear.launches == before + 1, f"linear {layer} x{frames}: no kernel launch")
+    exact = linear_plain(x.double(), w.double(), b.double(), gelu)
+    plain = linear_plain(x, w, b, gelu)
+    scale = exact.abs().max().item()
+    err, plain_err = ((t.double() - exact).abs().max().item() / scale for t in (got, plain))
+    check(err <= max(2 * plain_err, 1e-6), f"linear {layer} x{frames}: max-scaled error {err} against float64, "
+          f"f32's {plain_err}")
+    check(torch.equal(got, linear(x, w, b, gelu)), f"linear {layer} x{frames}: two calls differ")
+    row = {"layer": layer, "shape": [m, k, n], "gelu": gelu, "block_n": tiling(m, n, sm_count()),
+           "max_abs_err": (got - plain).abs().max().item(), "max_scaled_err_vs_f64": err,
+           "plain_max_scaled_err_vs_f64": plain_err}
+    if timed:
+        flops = 2 * m * k * n
+        bnd, by = bound_ms((m * k + 2 * n * k + m * n) * 4, 3 * flops, PEAK_TF32)
+        ms = time_ms(lambda: linear(x, w, b, gelu))
+        row.update(ms=ms, plain_ms=time_ms(lambda: linear_plain(x, w, b, gelu)),
+                   library_ms=time_ms(lambda: F.linear(x, w, b)), bound_ms=bnd, bound_by=by,
+                   bound_peak="3xTF32 tensor cores, 495 TFLOP/s", tflops=flops / ms / 1e9, bound_share=bnd / ms)
+    emit("kernel", name="linear", frames=frames, **row)
+    return row
+
+
 def run_stream(est, out_path, microbatch, per_program, phase="stream", **extra):
     from depth_estimation_tpu_torch.ops import kernels
     from depth_estimation_tpu_torch.runtime.stream import VidStream
@@ -567,7 +614,8 @@ def bf16_mode(est, frame, bound, per_program, phase="bf16"):
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) / 8 * 1e3
     counts = kernels.launch_counts()
-    want = {name: 8 * n for name, n in per_program.items()}
+    # bf16 linear layers take F.linear by dtype (cuBLAS bf16 is on the tensor cores): no linear launches
+    want = {name: 8 * n for name, n in {**per_program, "linear": 0}.items()}
     check(counts == want, f"{phase}: launch counts {counts} != {want}")
     events = cuda_events(lambda: est16.predict_device_u8(frame))
     k1_route = {name: sum(e.count for e in events if name in e.key) for name in K1_KERNELS}
@@ -601,7 +649,8 @@ def bf16_tail(est, est16, frame, bound, phase):
 
 # -- the fused iris/pose + depth path ----------------------------------------------
 
-FUSED_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
+FUSED_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0,
+                     "linear": 100}
 DETECTOR_INPUTS = {"blazeface_128x128": ((128, 128), (0.5,) * 3, (0.5,) * 3),
                    "blazepose_256x256": ((256, 256), (0.0,) * 3, (1.0,) * 3),
                    "blazepose_detector_224x224": ((224, 224), (0.5,) * 3, (0.5,) * 3)}
@@ -826,8 +875,10 @@ def profile_fused(est, weights, frame, phase="fused_profile", batch=1, n=8):
 
 # -- the detection-only path (depth_by_detection) and the staged loop ---------------------
 
-DETECTION_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 2, "resize_planes": 0, "grouped_conv3x3": 0}
-STAGED_PER_FRAME = {"multi_head_attention": 24, "fused_preprocess": 2, "resize_planes": 1, "grouped_conv3x3": 0}
+DETECTION_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 2, "resize_planes": 0, "grouped_conv3x3": 0,
+                         "linear": 0}
+STAGED_PER_FRAME = {"multi_head_attention": 24, "fused_preprocess": 2, "resize_planes": 1, "grouped_conv3x3": 0,
+                    "linear": 100}
 
 
 def make_face_detector(weights, thresh=0.2, device="cuda"):
@@ -989,7 +1040,7 @@ def detection_depth(weights, frame, phase="detection_depth"):
     meds = rois_median_depth(depth, boxes_yxyx, ones)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"multi_head_attention": 0, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0}
+    want = {"multi_head_attention": 0, "fused_preprocess": 3, "resize_planes": 1, "grouped_conv3x3": 0, "linear": 0}
     check(counts == want, f"{phase}: launch counts {counts} != {want}")
     check(len(bboxes) > 0, f"{phase}: no boxes on a hit")
     cpu_meds = rois_median_depth(depth.cpu(), boxes_yxyx.cpu(), ones.cpu())
@@ -1024,7 +1075,8 @@ def profile_detection(weights, frame, phase="detection_profile", n=8):
               for k, t, c in rows[:10]])
 
 
-POSE_DETECT_PER_CALL = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 0, "grouped_conv3x3": 0}
+POSE_DETECT_PER_CALL = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 0, "grouped_conv3x3": 0,
+                        "linear": 0}
 
 
 def _launched(call, per_call, what):
@@ -1161,7 +1213,9 @@ def run_staged_stream(est, weights, out_path, frames=8, phase="staged_stream"):
 
 # -- the serving surface: DepthServer, BucketedDepthServer, FusedDepthServer, MultiStream, serve ---------
 
-DPT_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+# linear: 24 blocks × (qkv, proj, fc1, fc2) + 4 readout projections
+DPT_PER_PROGRAM = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                   "linear": 100}
 SERVER_BATCH = 8
 
 
@@ -1526,7 +1580,8 @@ def run_serve_cli(tmp, phase="serve_cli"):
 
 # -- training, evaluation and checkpoints --------------------------------------
 
-TRAIN_PER_STEP = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+TRAIN_PER_STEP = {"multi_head_attention": 24, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                  "linear": 100}
 
 
 def grads_of(fn, inputs, upstream):
@@ -1876,7 +1931,8 @@ def run_evaluate(tmp, phase="evaluate", model_type="MiDaS_small"):
         else:
             os.environ[checkpoint.CACHE_ENV] = saved_env
     (gpu, counts), (cpu, _) = lines["cuda"], lines["cpu"]
-    check(counts == {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0},
+    check(counts == {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                     "linear": 0},
           f"{phase}: launch counts {counts}")
     check(set(gpu) == set(cpu) and gpu["images"] == 8, f"{phase}: {gpu} vs {cpu}")
     diffs = {k: abs(gpu[k] - v) / max(1.0, abs(v)) for k, v in cpu.items() if isinstance(v, float)}
@@ -1887,7 +1943,8 @@ def run_evaluate(tmp, phase="evaluate", model_type="MiDaS_small"):
 
 
 EXPORT_FRAMES = 4
-MIDAS_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 30}
+MIDAS_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 30,
+                     "linear": 0}
 
 _LOAD_ALONE = """
 import json, sys, time
@@ -2188,8 +2245,11 @@ def run_parallel(est, frames8, phase="parallel", batch=2, src_hw=(240, 320)):
             with torch.inference_mode(), est._numerics():
                 want = est.model(x)
                 got, counts = counted(lambda: dpt_apply_pipelined(est.model, x, mesh, microbatches=2))
+            # the trunk runs once a microbatch (K1 24 and 96 linear layers each), the decoder once on the
+            # gathered hooks (its 4 readout projections)
             rows["pipelined"] = held(phase, "pipelined", max_scaled_err(got, want), 1e-4, counts,
-                                     {**DPT_PER_PROGRAM, "fused_preprocess": 0, "resize_planes": 0}, 2)
+                                     {**DPT_PER_PROGRAM, "multi_head_attention": 2 * 24, "fused_preprocess": 0,
+                                      "resize_planes": 0, "linear": 2 * 96 + READOUTS["dpt_large"]})
             want = midas.predict_batch(frames[:MICROBATCH])
             got, counts = counted(lambda: midas.predict_batch_sharded(frames[:MICROBATCH], mesh))
             rows["midas_batch_sharded"] = held(phase, "midas_batch_sharded", max_scaled_err(got, want), 1e-5,
@@ -2255,17 +2315,22 @@ def run_parallel_tp(est, gen, phase="parallel_tp", tps=(2, 4)):
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             rows[f"tp{tp}"] = held(phase, f"tp{tp}", max_scaled_err(got, want), 2e-5, counts,
-                                   {**DPT_PER_PROGRAM, "multi_head_attention": 1, "fused_preprocess": 0,
-                                    "resize_planes": 0}, tp)
+                                   BLOCK_PER_RANK, tp)
             rows[f"tp{tp}"]["local_heads"] = ranks[0].attn.num_heads
             per_path[f"parallel_tp{tp}_block"] = counts
     emit(phase, block="DPT_Large blocks.0", tokens=577, batch=1, dtype="float32", paths=rows)
     return per_path
 
 
-SMALL_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
-HYBRID_PER_PROGRAM = {"multi_head_attention": 12, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
-K1_ONLY = {"multi_head_attention": 1, "fused_preprocess": 0, "resize_planes": 0, "grouped_conv3x3": 0}
+SMALL_PER_PROGRAM = {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                     "linear": 0}
+# linear: 12 blocks × 4 + 2 readouts (levels 0 and 1 are the stem's maps)
+HYBRID_PER_PROGRAM = {"multi_head_attention": 12, "fused_preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                      "linear": 50}
+READOUTS = {"dpt_large": 4, "dpt_hybrid": 2}  # readout projections a program
+# one ViT block on one rank: K1 once, its four linear layers
+BLOCK_PER_RANK = {"multi_head_attention": 1, "fused_preprocess": 0, "resize_planes": 0, "grouped_conv3x3": 0,
+                  "linear": 4}
 SP_TOKENS = 769  # DPT_Large at 384×512
 
 
@@ -2342,7 +2407,7 @@ def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
                     [blk(x[:, starts[r]:starts[r + 1]], SeqShards(None, sp, r, counts_sp)) for r in range(sp)], 1))
                 k1_errs = [(o - attention_plain(q, k, v)).abs().max().item() for q, k, v, o in launches]
                 check(max(k1_errs) <= 2e-5, f"{phase} sp{sp}: K1 launches off their plain versions by {k1_errs}")
-                rows[f"sp{sp}_block"] = held(phase, f"sp{sp}_block", max_scaled_err(got, want), 2e-5, counts, K1_ONLY,
+                rows[f"sp{sp}_block"] = held(phase, f"sp{sp}_block", max_scaled_err(got, want), 2e-5, counts, BLOCK_PER_RANK,
                                              sp)
                 rows[f"sp{sp}_block"].update(tokens=list(counts_sp), k1_max_abs_err=max(k1_errs),
                                              k1_shapes=[[list(q.shape), k.shape[2]] for q, k, _, _ in launches])
@@ -2357,12 +2422,13 @@ def run_parallel_sp(est, gen, frames8, phase="parallel_sp", sps=(2, 4)):
         got, counts = counted(lambda: slabs(convs["midas"][0], n))
         rows[f"midas_{n}_slabs"] = held(phase, f"midas_{n}_slabs", max_scaled_err(got, wants["midas"]), 1e-3, counts,
                                         MIDAS_PER_PROGRAM, n)
-    # the DPT families' slabs: K2 and K3 a slab, the trunk whole (one K1 a block)
+    # the DPT families' slabs: K2, K3 and the readout projections a slab, the trunk whole (one K1 a block)
     for key, (e, per_program) in dpts.items():
         for n in sps:
             got, counts = counted(lambda: slabs(e, n))
             rows[f"{key}_{n}_slabs"] = held(phase, f"{key}_{n}_slabs", max_scaled_err(got, wants[key]), 1e-3, counts,
-                                            {**per_program, "fused_preprocess": n, "resize_planes": n})
+                                            {**per_program, "fused_preprocess": n, "resize_planes": n,
+                                             "linear": per_program["linear"] + (n - 1) * READOUTS[key]})
     del convs, dpts
     torch.cuda.empty_cache()
     emit(phase, world_size=1, backend="nccl", paths=rows, seconds=time.perf_counter() - t_phase)
@@ -2551,6 +2617,11 @@ def main():
         for layer in MIDAS_CONV2_SHAPES:
             check_grouped_conv(gen, layer, torch.float32, 1e-4, timed=False, batch=MICROBATCH)
             check_grouped_conv(gen, layer, torch.bfloat16, 1e-2, timed=False, batch=MICROBATCH)
+        # the linear layers at one frame, the microbatch and the servers' batch (ViT-B's at the microbatch
+        # alone); the table's row is fc1 at the microbatch
+        lin = {f"{layer}_x{frames}": check_linear(gen, layer, frames,
+                                                 timed=not layer.startswith("vit_b") or frames == MICROBATCH)
+               for layer in VIT_LINEARS for frames in LINEAR_ROWS}
 
     est = DepthEstimator("DPT_Large", seed=0, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2615,11 +2686,9 @@ def main():
     torch.cuda.empty_cache()
 
     family_launches = {}
-    for name, prefix, net_cfg, k1, bound in [("MiDaS_small", "small", SMALL_PREPROCESS, 0, 0.1),
-                                             ("DPT_Hybrid", "hybrid", DPT_PREPROCESS, 12, 0.3)]:
+    for name, prefix, net_cfg, per_program, bound in [("MiDaS_small", "small", SMALL_PREPROCESS, SMALL_PER_PROGRAM, 0.1),
+                                                      ("DPT_Hybrid", "hybrid", DPT_PREPROCESS, HYBRID_PER_PROGRAM, 0.3)]:
         fam = DepthEstimator(name, seed=0, device="cuda")
-        per_program = {"multi_head_attention": k1, "fused_preprocess": 1, "resize_planes": 1,
-                       "grouped_conv3x3": 0}
         with tempfile.TemporaryDirectory() as tmp:
             family_launches[name], fps = run_stream(fam, os.path.join(tmp, f"{prefix}.avi"), 1, per_program,
                                                     f"{prefix}_stream")
@@ -2639,7 +2708,7 @@ def main():
         grad_rows = check_kernel_grads(gen)
     train_hold(est, 2, (240, 320), TRAIN_PER_STEP, 4e-3)
     midas_train_launches = train_hold(midas, 1, (192, 256), {**TRAIN_PER_STEP, "multi_head_attention": 0,
-                                                             "grouped_conv3x3": 60}, 2.5e-2, "midas_train_hold")
+                                                             "grouped_conv3x3": 60, "linear": 0}, 2.5e-2, "midas_train_hold")
     del midas
     torch.cuda.empty_cache()
     train_launches = run_train(est)
@@ -2722,6 +2791,16 @@ def main():
               bf16_max_abs_err=gconv16["layer3"]["max_abs_err"],
               per_layer={layer: {"f32": {k: gconv[layer][k] for k in K4_KEYS},
                                  "bf16": {k: gconv16[layer][k] for k in K4_KEYS}} for layer in MIDAS_CONV2_SHAPES}),
+        entry("linear", "depth_estimation_tpu_torch/csrc/linear.cu",
+              "none: the JAX package leaves the linear layers to XLA", lin["fc1_x4"], launches,
+              ("dpt_large", "dpt_hybrid", "fused_iris", "tflite", "staged_iris", "server", "fused_server",
+               "multistream", "native_stream", "train", "export_dpt_large", "export_dpt_large_b4", "export_fused",
+               *parallel_launches),
+              bound_peak=lin["fc1_x4"]["bound_peak"],
+              per_shape={key: {k: row.get(k) for k in ("shape", "gelu", "block_n", "max_abs_err",
+                                                       "max_scaled_err_vs_f64", "ms", "plain_ms", "library_ms",
+                                                       "bound_ms", "tflops", "bound_share")}
+                         for key, row in lin.items()}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from depth_estimation_tpu_torch.models.midas_small import FeatureFusionBlock, UpsampleConv3x3
-from depth_estimation_tpu_torch.models.vit import ViT
+from depth_estimation_tpu_torch.models.vit import ViT, dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +59,9 @@ DPT_HYBRID = DPTConfig(
 
 
 class Readout(nn.Module):
-    """ProjectReadout: fold the cls token into every patch token."""
+    """ProjectReadout: fold the cls token into every patch token. ``project``
+    is the hub's ``Sequential(Linear, GELU)``; the forward runs both as one
+    ``vit.dense`` call, in float32 GELU in the f32 GEMM kernel's epilogue."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -67,7 +69,7 @@ class Readout(nn.Module):
 
     def forward(self, tokens):
         cls_tok, feat = tokens[:, :1], tokens[:, 1:]
-        return self.project(torch.cat([feat, cls_tok.expand_as(feat)], dim=-1))
+        return dense(self.project[0], torch.cat([feat, cls_tok.expand_as(feat)], dim=-1), gelu=True)
 
 
 class Reassemble(nn.Module):

@@ -9,7 +9,9 @@ module names so a hub state dict loads as it is:
 * learned cls token + position embedding, resampled bilinearly for
   non-native grids (DPT ``_resize_pos_embed``),
 * pre-LN blocks (LN eps 1e-6, qkv-bias attention, exact-GELU MLP), with the
-  attention through kernel K1 (``ops.kernels.attention``),
+  attention through kernel K1 (``ops.kernels.attention``) and the four
+  float32 linear layers through the f32 GEMM kernel (``dense``, which calls
+  ``ops.kernels.dense.linear``; fc1's GELU in its epilogue),
 * the token tensors at the hook blocks returned before any final norm, as
   DPT's reassemble stage consumes them,
 * tensor parallelism (``parallel.mesh.tensor_parallel``): ``Attention`` and
@@ -32,28 +34,36 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from depth_estimation_tpu_torch.models.resnetv2 import STAGE_CHANNELS, ResNetV2Stem
 from depth_estimation_tpu_torch.ops.kernels.attention import multi_head_attention
+from depth_estimation_tpu_torch.ops.kernels.dense import linear, linear_plain
 from depth_estimation_tpu_torch.ops.resize import resize_bilinear
 from depth_estimation_tpu_torch.parallel.ops import (copy_to_group, gather_kv, gather_tokens, reduce_from_group,
                                                      scatter_tokens, seq_shards)
 
 
-def _like(linear: nn.Linear, in_features: int, out_features: int) -> nn.Linear:
-    w = linear.weight
+def _like(layer: nn.Linear, in_features: int, out_features: int) -> nn.Linear:
+    w = layer.weight
     return nn.Linear(in_features, out_features, device=w.device, dtype=w.dtype)
 
 
-def _row_parallel(linear: nn.Linear, x, group):
-    """``linear(x)`` when whole; cut over ``group``, the partial products
+def dense(layer: nn.Linear, x, bias: bool = True, gelu: bool = False):
+    """``layer(x)`` (without its bias if not ``bias``; then exact-erf GELU if
+    ``gelu``): float32 through the f32 GEMM kernel's operator, other dtypes
+    through ``F.linear``, whose bf16 products are on the tensor cores already."""
+    fn = linear if x.dtype is torch.float32 else linear_plain
+    return fn(x, layer.weight, layer.bias if bias else None, gelu)
+
+
+def _row_parallel(layer: nn.Linear, x, group):
+    """``layer(x)`` when whole; cut over ``group``, the partial products
     all-reduced and the whole bias added once."""
     if group is None:
-        return linear(x)
-    return reduce_from_group(F.linear(x, linear.weight), group) + linear.bias
+        return dense(layer, x)
+    return reduce_from_group(dense(layer, x, bias=False), group) + layer.bias
 
 
 class Attention(nn.Module):
@@ -80,7 +90,7 @@ class Attention(nn.Module):
         this sp rank's share, and K and V are gathered over the group."""
         B, N, _ = x.shape
         H = self.num_heads
-        qkv = self.qkv(copy_to_group(x, self.tp_group))
+        qkv = dense(self.qkv, copy_to_group(x, self.tp_group))
         D = qkv.shape[-1] // (3 * H)
         qkv = qkv.reshape(B, N, 3, H, D)
         if seq is None:
@@ -95,8 +105,7 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.act = nn.GELU()  # exact erf form
+        self.fc1 = nn.Linear(dim, hidden)  # then exact-erf GELU, applied with fc1's product
         self.fc2 = nn.Linear(hidden, dim)
         self.tp_group = None
 
@@ -109,7 +118,8 @@ class Mlp(nn.Module):
         self.tp_group = group
 
     def forward(self, x):
-        return _row_parallel(self.fc2, self.act(self.fc1(copy_to_group(x, self.tp_group))), self.tp_group)
+        h = dense(self.fc1, copy_to_group(x, self.tp_group), gelu=True)
+        return _row_parallel(self.fc2, h, self.tp_group)
 
 
 class Block(nn.Module):

@@ -30,7 +30,7 @@ from typing import Dict, Iterable, Tuple
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention", "resize", "grouped_conv")
+SOURCES = ("attention", "resize", "grouped_conv", "linear")
 _LOCK = threading.RLock()  # build and load
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()

@@ -14,6 +14,7 @@ import torch
 from depth_estimation_tpu_torch.config import CARD, DPT_PREPROCESS, SMALL_PREPROCESS
 from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+from depth_estimation_tpu_torch.ops.kernels import dense as tlin
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 
@@ -517,7 +518,7 @@ def test_estimator_on_the_card_holds_the_cpu(cuda, name):
     got = est.predict(frame)
     counts = kernels.launch_counts()
     assert counts == {"multi_head_attention": 12 if name == "DPT_Hybrid" else 0, "fused_preprocess": 1,
-                      "resize_planes": 1, "grouped_conv3x3": 0}, counts
+                      "resize_planes": 1, "grouped_conv3x3": 0, "linear": 50 if name == "DPT_Hybrid" else 0}, counts
     want = cpu.predict(frame)
     scale = float(np.abs(want).max())
     assert np.isfinite(got).all() and scale > 0
@@ -551,7 +552,7 @@ def test_fused_program_on_the_card_holds_the_cpu(cuda, tmp_path, monkeypatch):
     kernels.reset_launch_counts()
     got = {k: v.cpu().numpy() for k, v in FusedFrameRunner(est, det)(frame).items()}
     assert kernels.launch_counts() == {"multi_head_attention": 24, "fused_preprocess": 3, "resize_planes": 1,
-                                       "grouped_conv3x3": 0}
+                                       "grouped_conv3x3": 0, "linear": 100}
     want = {k: v.numpy() for k, v in FusedFrameRunner(cpu_est, cpu_det)(frame).items()}
     scale = float(np.abs(want["depth"]).max())
     assert np.isfinite(got["depth"]).all() and float(np.abs(got["depth"] - want["depth"]).max()) / scale < 1e-3
@@ -603,9 +604,9 @@ def test_grouped_conv_gradients_match_plain(cuda, gen, c, h, w):
 
 @pytest.mark.parametrize("name,hw,per_step", [
     ("MiDaS_small", (192, 256), {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
-                                 "grouped_conv3x3": 0}),
+                                 "grouped_conv3x3": 0, "linear": 0}),
     ("MiDaS", (192, 256), {"multi_head_attention": 0, "fused_preprocess": 1, "resize_planes": 1,
-                           "grouped_conv3x3": 60})])
+                           "grouped_conv3x3": 60, "linear": 0})])
 def test_train_step_on_the_card_holds_the_cpu(cuda, name, hw, per_step):
     """One train step of a full-width family on the card (its kernels and
     their Functions) against the same weights on the CPU: the
@@ -662,6 +663,8 @@ def _op_cases(gen, cuda):
     depth = 600 * planes - 100  # the u8 route's wrap-around both ways
     x, k = _grouped_inputs(gen, 1, 64, 9, 11, 8, torch.float32, cuda)
     pre = (imgs, [24, 32], list(DPT_PREPROCESS.mean), list(DPT_PREPROCESS.std), True, "cubic")
+    lin = (torch.randn((2, 77, 64), generator=gen, device=cuda), torch.randn((96, 64), generator=gen, device=cuda),
+           torch.randn((96,), generator=gen, device=cuda))
     return {
         "attention": (torch.ops.depth_tpu_torch.attention, (qkv[0], qkv[1], qkv[2]), tatt.attention_plain),
         "attention_nk": (torch.ops.depth_tpu_torch.attention, (qkv[0], kv[0], kv[1]), tatt.attention_plain),
@@ -676,11 +679,13 @@ def _op_cases(gen, cuda):
         "resize_u8": (torch.ops.depth_tpu_torch.resize_planes, (depth, [40, 56], "cubic", False, "u8"),
                       trsz.resize_planes_plain),
         "grouped_conv3x3": (torch.ops.depth_tpu_torch.grouped_conv3x3, (x, k, 8), tgc.grouped_conv3x3_plain),
+        "linear": (torch.ops.depth_tpu_torch.linear, (*lin[:3], False), tlin.linear_plain),
+        "linear_gelu": (torch.ops.depth_tpu_torch.linear, (*lin[:3], True), tlin.linear_plain),
     }
 
 
 OP_CASES = ("attention", "attention_nk", "preprocess", "preprocess_window", "resize_f32", "resize_window",
-            "resize_u8", "grouped_conv3x3")
+            "resize_u8", "grouped_conv3x3", "linear", "linear_gelu")
 
 
 @pytest.mark.parametrize("case", OP_CASES)
@@ -702,8 +707,8 @@ def test_operator_cuda_implementation_matches_plain(cuda, gen, case):
         near = (f32 - f32.round()).abs() < 1e-3
         assert not ((got != want) & ~near).any()
     else:  # the kernels' tolerances of the tests above
-        atol, rtol = {"attention": (2e-5, 1e-4), "attention_nk": (2e-5, 1e-4),
-                      "grouped_conv3x3": (1e-4, 1e-4)}.get(case, (3e-5, 0))
+        atol, rtol = {"attention": (2e-5, 1e-4), "attention_nk": (2e-5, 1e-4), "grouped_conv3x3": (1e-4, 1e-4),
+                      "linear": (1e-5, 1e-5), "linear_gelu": (1e-5, 1e-5)}.get(case, (3e-5, 0))
         torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
@@ -712,7 +717,8 @@ def test_operator_opcheck_on_cuda(cuda, gen, case):
     """``torch.library.opcheck`` on CUDA tensors: schema, autograd
     registration, the fake implementation against the CUDA one, AOT tracing."""
     op, args, _ = _op_cases(gen, cuda)[case]
-    if case in ("attention", "attention_nk", "resize_f32", "resize_window", "grouped_conv3x3"):  # with a gradient
+    if case in ("attention", "attention_nk", "resize_f32", "resize_window", "grouped_conv3x3", "linear",
+                "linear_gelu"):  # with a gradient
         args = tuple(a.detach().requires_grad_() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
                      for a in args)
     result = torch.library.opcheck(op.default, args)
@@ -776,7 +782,7 @@ def test_exported_tiny_dpt_round_trip_on_the_card(cuda, tmp_path):
     got = fn(est.params, img)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"multi_head_attention": 4, "fused_preprocess": 1, "resize_planes": 1,
-                                       "grouped_conv3x3": 0}
+                                       "grouped_conv3x3": 0, "linear": 4 * 4 + 4}
     want = est.predict(img)
     assert got.device.type == "cuda" and np.isfinite(want).all()
     assert float(np.abs(got.cpu().numpy() - want).max()) <= 1e-6 * float(np.abs(want).max())
@@ -810,3 +816,171 @@ def test_ssi_loss_on_more_than_2_24_values_on_the_card(cuda, shape):
     assert pred.size > 2 ** 24
     got = float(ssi_loss(torch.from_numpy(pred).to(cuda), torch.from_numpy(gt).to(cuda)))
     assert got == pytest.approx(_ssi_loss_numpy(pred, gt), rel=1e-4)
+
+
+# -- the linear layers' f32 GEMM kernel (csrc/linear.cu) ------------------------------------------------
+
+# (K, N, GELU) of each linear layer of the two DPT families (qkv, proj, fc1, fc2, readout)
+LINEAR_LAYERS = {"large_qkv": (1024, 3072, False), "large_proj": (1024, 1024, False),
+                 "large_fc1": (1024, 4096, True), "large_fc2": (4096, 1024, False),
+                 "large_readout": (2048, 1024, True), "hybrid_qkv": (768, 2304, False),
+                 "hybrid_proj": (768, 768, False), "hybrid_fc1": (768, 3072, True), "hybrid_fc2": (3072, 768, False),
+                 "hybrid_readout": (1536, 768, True)}
+# rows: one row, the sp shares of 769 tokens over 4 and 2, one frame, the stream's microbatch, the servers' batch
+LINEAR_ROWS = (1, 193, 385, 769, 3076, 6152)
+
+
+def _linear_case(gen, device, m, k, n, scale=30.0):
+    """×30-scaled inputs, as K1's and K4's large cases: products of 900
+    times the unit ones, where TF32's rounding shows."""
+    x = torch.randn((m, k), generator=gen, device=device) * scale
+    w = torch.randn((n, k), generator=gen, device=device) * (scale / k ** 0.5)
+    return x, w, torch.randn((n,), generator=gen, device=device)
+
+
+def _scaled_err(got, exact):
+    return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def _assert_f32_error(x, w, b, gelu):
+    """One launch, the same bits twice, and within twice f32's own distance
+    from the float64 result (max-scaled)."""
+    before = tlin.linear.launches
+    got = tlin.linear(x, w, b, gelu)
+    again = tlin.linear(x, w, b, gelu)
+    torch.cuda.synchronize()
+    assert tlin.linear.launches == before + 2
+    assert got.shape == (*x.shape[:-1], w.shape[0]) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    exact = tlin.linear_plain(x.double(), w.double(), None if b is None else b.double(), gelu)
+    err, f32 = _scaled_err(got, exact), _scaled_err(tlin.linear_plain(x, w, b, gelu), exact)
+    assert err <= max(2 * f32, 1e-6), (err, f32)
+    return err
+
+
+@pytest.mark.parametrize("m", LINEAR_ROWS)
+@pytest.mark.parametrize("layer", list(LINEAR_LAYERS))
+def test_linear_kernel_holds_float64_as_f32_does(cuda, gen, layer, m):
+    """Every linear layer of both families at every row count the cells and
+    the sp shares run, against float64 (+ exact GELU where the layer has it)."""
+    k, n, gelu = LINEAR_LAYERS[layer]
+    _assert_f32_error(*_linear_case(gen, cuda, m, k, n), gelu)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("layer", [key for key in LINEAR_LAYERS if not key.endswith("readout")])
+def test_linear_kernel_at_tensor_parallel_shards(cuda, gen, layer, tp):
+    """A tp rank's shard at one frame: qkv and fc1 cut on N (column-parallel),
+    proj and fc2 on K and without a bias (row-parallel: the bias is added once
+    after the all-reduce)."""
+    k, n, gelu = LINEAR_LAYERS[layer]
+    row_parallel = layer.endswith(("proj", "fc2"))
+    k, n = (k // tp, n) if row_parallel else (k, n // tp)
+    x, w, b = _linear_case(gen, cuda, 769, k, n)
+    _assert_f32_error(x, w, None if row_parallel else b, gelu)
+
+
+def test_linear_kernel_error_is_f32s_not_tf32s(cuda, gen):
+    """At fc1's shape over the stream's microbatch: one TF32 pass lands some
+    100 times further from float64 than the kernel does."""
+    x, w, b = _linear_case(gen, cuda, 3076, 1024, 4096)
+    err = _assert_f32_error(x, w, b, True)
+    exact = tlin.linear_plain(x.double(), w.double(), b.double(), True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _scaled_err(tlin.linear_plain(x, w, b, True), exact)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert tf32 > 100 * err, (tf32, err)
+
+
+def test_linear_kernel_drops_the_remainder_of_a_weight_updated_in_place(cuda, gen):
+    """The cached w_lo (and its tensor maps) follow the weight: after an
+    in-place update and after ``load_state_dict`` the kernel holds the plain
+    version on the new weight."""
+    x, w, b = _linear_case(gen, cuda, 769, 1024, 1024, scale=1.0)
+    layer = torch.nn.Linear(1024, 1024, device=cuda)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.copy_(b)
+    for update in (lambda: layer.weight.mul_(-0.5),
+                   lambda: layer.load_state_dict({"weight": w * 3, "bias": b})):
+        first = tlin.linear(x, layer.weight, layer.bias)
+        torch.testing.assert_close(first, tlin.linear_plain(x, layer.weight, layer.bias), atol=1e-5, rtol=1e-5)
+        with torch.no_grad():
+            update()
+        got = tlin.linear(x, layer.weight, layer.bias)
+        torch.testing.assert_close(got, tlin.linear_plain(x, layer.weight, layer.bias), atol=1e-5, rtol=1e-5)
+        assert not torch.allclose(got, first)
+
+
+def test_linear_refuses_operands_the_kernel_cannot_take(cuda, gen):
+    """bf16 (the models send it to F.linear by dtype), a K that is not a
+    multiple of 32, an N that is not of 8, an x that is not 16-byte aligned
+    and a weight on the CPU raise ValueError and launch nothing."""
+    x, w, b = _linear_case(gen, cuda, 769, 1024, 1024, scale=1.0)
+    flat = torch.empty(769 * 1024 + 1, device=cuda)
+    cases = [(x.bfloat16(), w.bfloat16(), b.bfloat16()), (x[:, :1000].contiguous(), w[:, :1000].contiguous(), b),
+             (x, w[:1020].contiguous(), b[:1020]), (flat[1:].view(769, 1024), w, b), (x, w.cpu(), b)]
+    for args in cases:
+        launches = tlin.linear.launches
+        with pytest.raises(ValueError, match="linear kernel takes float32"):
+            tlin.linear(*args, gelu=True)
+        assert tlin.linear.launches == launches
+
+
+def test_linear_copies_a_non_contiguous_x(cuda, gen):
+    """A transposed-back x is made contiguous and launches the kernel once;
+    an x of no rows gives an empty output and no launch."""
+    x, w, b = _linear_case(gen, cuda, 769, 1024, 1024, scale=1.0)
+    before = tlin.linear.launches
+    got = tlin.linear(x.t().contiguous().t(), w, b, gelu=True)
+    assert tlin.linear.launches == before + 1
+    torch.testing.assert_close(got, tlin.linear_plain(x, w, b, gelu=True), atol=1e-5, rtol=1e-5)
+    empty = tlin.linear(x[:0], w, b)
+    assert empty.shape == (0, 1024) and tlin.linear.launches == before + 1
+
+
+def test_linear_gradients_match_plain(cuda, gen):
+    """The operator's output carries linear_backward_plain's dX, dW and db,
+    with the GELU's derivative, as autograd of the plain version gives them."""
+    x, w, b = _linear_case(gen, cuda, 385, 1024, 4096, scale=1.0)
+    dy = torch.randn((385, 4096), generator=gen, device=cuda)
+    before = tlin.linear.launches
+    got = _grads(lambda *t: tlin.linear(*t, gelu=True), [x, w, b], dy)
+    assert tlin.linear.launches == before + 1  # the backward launches nothing
+    want = _grads(lambda *t: tlin.linear_plain(*t, gelu=True), [x, w, b], dy)
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,per_program", [("DPT_Large", 100), ("DPT_Hybrid", 50)])
+def test_linear_launches_on_a_dpt_program(cuda, name, per_program):
+    """Every linear layer of a DPT frame program takes the kernel: 24 (12)
+    blocks × qkv, proj, fc1, fc2 and 4 (2) readout projections; the bf16
+    program launches none. The weights-as-argument program, given a fresh
+    ``est.params`` each call, finds the weights' cached remainders: no entry
+    is made again."""
+    from depth_estimation_tpu_torch.estimator import DepthEstimator
+    from depth_estimation_tpu_torch.ops import kernels
+
+    frame = np.random.default_rng(0).integers(0, 256, (480, 640, 3), np.uint8)
+    for dtype, launches in (("float32", per_program), ("bfloat16", 0)):
+        est = DepthEstimator(name, seed=0, device="cuda", dtype=dtype, verbose=False)
+        est.predict(frame)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        est.predict(frame)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["linear"] == launches
+        if dtype == "float32":
+            qkv = "pretrained.model.blocks.0.attn.qkv.weight"
+            entry = tlin._weight_entry(est.model.state_dict()[qkv])
+            entries = {key: dict(views) for key, (_, views) in tlin._WEIGHTS.items()}
+            assert len(entries) >= per_program and tlin._weight_entry(est.params[qkv]) is entry
+            fn = est.frame_fn(frame.shape[:2])
+            got = [fn(est.params, frame) for _ in range(2)]
+            assert torch.equal(got[0], got[1])
+            assert {key: dict(views) for key, (_, views) in tlin._WEIGHTS.items()} == entries
+        del est
+        torch.cuda.empty_cache()

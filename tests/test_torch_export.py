@@ -37,6 +37,7 @@ from depth_estimation_tpu_torch.geometry.face import FaceDet
 from depth_estimation_tpu_torch.models.dpt import DPT
 from depth_estimation_tpu_torch.models.midas_v21 import MidasV21
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
+from depth_estimation_tpu_torch.ops.kernels import dense as tlin
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 from depth_estimation_tpu_torch.runtime.fused import make_fused_iris_frame_fn
@@ -56,10 +57,12 @@ FUSED_HW = (120, 160)
 OPS = {"attention": torch.ops.depth_tpu_torch.attention.default,
        "preprocess": torch.ops.depth_tpu_torch.preprocess.default,
        "resize_planes": torch.ops.depth_tpu_torch.resize_planes.default,
-       "grouped_conv3x3": torch.ops.depth_tpu_torch.grouped_conv3x3.default}
+       "grouped_conv3x3": torch.ops.depth_tpu_torch.grouped_conv3x3.default,
+       "linear": torch.ops.depth_tpu_torch.linear.default}
 # the plain version that each operator's CPU implementation calls: (module, function name)
 PLAIN = {"attention": (tatt, "attention_plain"), "preprocess": (trsz, "preprocess_plain"),
-         "resize_planes": (trsz, "resize_planes_plain"), "grouped_conv3x3": (tgc, "grouped_conv3x3_plain")}
+         "resize_planes": (trsz, "resize_planes_plain"), "grouped_conv3x3": (tgc, "grouped_conv3x3_plain"),
+         "linear": (tlin, "linear_plain")}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -106,6 +109,10 @@ def _op_case(name, g):
     if name == "preprocess":
         img = torch.randint(0, 256, (2, 20, 24, 3), generator=g, dtype=torch.uint8)
         return img, [12, 16], [0.485, 0.456, 0.406], [0.229, 0.224, 0.225], True, "cubic"
+    if name in ("linear", "linear_no_bias"):
+        return (torch.randn((2, 5, 64), generator=g, requires_grad=True),
+                torch.randn((96, 64), generator=g, requires_grad=True),
+                torch.randn((96,), generator=g, requires_grad=True) if name == "linear" else None, name == "linear")
     if name in ("resize_f32", "resize_u8"):
         x = 40 * torch.randn((2, 12, 16), generator=g)
         return x.requires_grad_(name == "resize_f32"), [20, 28], "cubic", False, name.split("_")[1]
@@ -113,11 +120,12 @@ def _op_case(name, g):
             torch.randn((16, 4, 3, 3), generator=g, requires_grad=True), 4)
 
 
-@pytest.mark.parametrize("case", ["attention", "preprocess", "resize_f32", "resize_u8", "grouped_conv3x3"])
+@pytest.mark.parametrize("case", ["attention", "preprocess", "resize_f32", "resize_u8", "grouped_conv3x3", "linear",
+                                  "linear_no_bias"])
 def test_operators_pass_opcheck(case):
     """Schema, autograd registration, the fake implementation against the
     CPU one (shape, dtype, strides) and tracing through AOT autograd."""
-    op = OPS["resize_planes" if case.startswith("resize") else case]
+    op = OPS["resize_planes" if case.startswith("resize") else "linear" if case.startswith("linear") else case]
     result = torch.library.opcheck(op, _op_case(case, torch.Generator().manual_seed(0)))
     assert set(result.values()) == {"SUCCESS"}, result
 
@@ -146,9 +154,10 @@ def _live_calls(monkeypatch, fn) -> dict:
 
 @pytest.mark.parametrize("family", ["dpt", "midas_v21"])
 def test_exported_graph_calls_the_operators_as_the_live_program(monkeypatch, rng, family):
-    """The tiny DPT: K1 once a block, K2 1, K3 1; the tiny MiDaS v2.1: K4 once
-    a stride-1 bottleneck. The graph names each operator as often as the live
-    program calls it."""
+    """The tiny DPT: K1 once a block, K2 1, K3 1, the linear kernel four times
+    a block and once a readout; the tiny MiDaS v2.1: K4 once a stride-1
+    bottleneck. The graph names each operator as often as the live program
+    calls it."""
     name = f"export_test_tiny_{family}"
     make, cfg = ((lambda: DPT(TINY_DPT)), DPT_PREPROCESS) if family == "dpt" else (
         (lambda: MidasV21(TINY_MIDAS_V21)), SMALL_PREPROCESS)
@@ -161,9 +170,10 @@ def test_exported_graph_calls_the_operators_as_the_live_program(monkeypatch, rng
     nodes = _operator_nodes(load_frame_program(export_frame_program(est, HW)))
     assert nodes == live
     if family == "dpt":
-        assert nodes == {"attention": TINY_DPT.depth, "preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0}
+        assert nodes == {"attention": TINY_DPT.depth, "preprocess": 1, "resize_planes": 1, "grouped_conv3x3": 0,
+                         "linear": 4 * TINY_DPT.depth + 4}
     else:
-        assert nodes["grouped_conv3x3"] >= 1 and nodes["attention"] == 0
+        assert nodes["grouped_conv3x3"] >= 1 and nodes["attention"] == 0 and nodes["linear"] == 0
 
 
 # -- round trips ------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from depth_estimation_tpu.ops.postprocess import wraparound_u8_jax
 from depth_estimation_tpu.ops.preprocess import compute_resize_shape
 from depth_estimation_tpu_torch.ops.kernels import attention as tatt
 from depth_estimation_tpu_torch.ops.kernels import build
+from depth_estimation_tpu_torch.ops.kernels import dense as tlin
 from depth_estimation_tpu_torch.ops.kernels import grouped_conv as tgc
 from depth_estimation_tpu_torch.ops.kernels import resize as trsz
 
@@ -1081,3 +1082,211 @@ def _k4_bf16_check_staging(x, xp, weight, cg, nco, th, tw, wk, c0, h):
                                                rtol=0, atol=0)
             staged_w = buf[w_base:].reshape(nco, pco)[:, :9 * ck].reshape(nco, ck, 9)
             torch.testing.assert_close(staged_w, weight[:nco, ci0:ci0 + ck].reshape(nco, ck, 9), rtol=0, atol=0)
+
+
+# -- the linear layers' f32 GEMM (csrc/linear.cu): the operator's CPU, fake
+# and autograd implementations, the tiling, the weight cache and the 3xTF32
+# arithmetic.
+
+
+@pytest.mark.parametrize("gelu", [False, True], ids=["linear", "linear_gelu"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+def test_linear_cpu_implementation_is_nn_linear(rng, gelu, bias):
+    """On CPU tensors the operator is ``nn.Linear`` (+ ``nn.GELU()``) bit for
+    bit, so the CPU programs are unchanged."""
+    layer = torch.nn.Linear(64, 96, bias=bias)
+    x = torch.from_numpy(rng.standard_normal((2, 77, 64)).astype(np.float32))
+    want = layer(x)
+    if gelu:
+        want = torch.nn.GELU()(want)
+    got = tlin.linear(x, layer.weight, layer.bias, gelu)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.ops.depth_tpu_torch.linear(x, layer.weight, layer.bias, gelu), want)
+
+
+def test_linear_fake_implementation_gives_the_output_shape():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x, w = torch.empty((3, 5, 64)), torch.empty((96, 64))
+        out = torch.ops.depth_tpu_torch.linear(x, w, None, True)
+    assert out.shape == (3, 5, 96) and out.dtype == torch.float32
+
+
+def test_linear_refuses_other_devices():
+    with pytest.raises(ValueError, match="no linear kernel"):
+        tlin.linear(torch.empty((2, 64), device="meta"), torch.empty((8, 64), device="meta"))
+
+
+def test_vit_block_exports_through_the_linear_operator(rng):
+    """``torch.export`` of a ViT block (two heads of 64): its four linear
+    layers are four operator nodes (fc1's with GELU), beside one K1 node, and
+    the exported program holds the live block bit for bit."""
+    from depth_estimation_tpu_torch.models.vit import Block
+
+    torch.manual_seed(0)
+    blk = Block(128, 2).eval()
+    x = torch.from_numpy(rng.standard_normal((1, 33, 128)).astype(np.float32))
+    prog = torch.export.export(blk, (x,))
+    calls = [n for n in prog.graph.nodes if n.op == "call_function"]
+    lin = [n for n in calls if n.target == torch.ops.depth_tpu_torch.linear.default]
+    assert len(lin) == 4 and [n.args[3] for n in lin] == [False, False, True, False]
+    assert sum(n.target == torch.ops.depth_tpu_torch.attention.default for n in calls) == 1
+    with torch.no_grad():
+        assert torch.equal(prog.module()(x), blk(x))
+
+
+@pytest.mark.parametrize("gelu", [False, True], ids=["linear", "linear_gelu"])
+def test_linear_gradients_are_f_linears(rng, gelu):
+    """The registered backward (plain products, the GELU's derivative at the
+    recomputed pre-activation) against autograd through ``F.linear`` (+
+    ``F.gelu``); without a bias, db is None."""
+    x = torch.from_numpy(rng.standard_normal((3, 17, 64)).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.standard_normal((48, 64)).astype(np.float32)).requires_grad_()
+    b = torch.from_numpy(rng.standard_normal(48).astype(np.float32)).requires_grad_()
+    dy = torch.from_numpy(rng.standard_normal((3, 17, 48)).astype(np.float32))
+    for bias in (b, None):
+        leaves = [t for t in (x, w, bias) if t is not None]
+        got = torch.autograd.grad(tlin.linear(x, w, bias, gelu), leaves, dy)
+        ref = F.linear(x, w, bias)
+        want = torch.autograd.grad(F.gelu(ref) if gelu else ref, leaves, dy)
+        for g, wnt in zip(got, want):
+            torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-5)
+
+
+def test_dpt_state_dict_is_the_hubs():
+    """The modules keep ``nn.Linear`` (and the readout's ``Sequential(Linear,
+    GELU)``): after a forward through the operator the state dict has the same
+    keys and values, no remainder or descriptor among them."""
+    from depth_estimation_tpu_torch.models.dpt import DPT
+    from tests.test_torch_dpt import TINY
+
+    torch.manual_seed(0)
+    model = DPT(TINY).eval()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        model(torch.zeros((1, 3, 64, 96)))
+    after = model.state_dict()
+    assert list(after) == list(before) and all(torch.equal(after[k], before[k]) for k in before)
+    for key in ("pretrained.model.blocks.0.attn.qkv.weight", "pretrained.model.blocks.0.mlp.fc1.bias",
+                "pretrained.model.blocks.3.mlp.fc2.weight", "pretrained.act_postprocess1.0.project.0.weight"):
+        assert key in after
+    assert isinstance(model.pretrained.act_postprocess1._modules["0"].project[1], torch.nn.GELU)
+
+
+@pytest.mark.parametrize("m,n,want", [(769, 1024, 64), (769, 3072, 64), (769, 4096, 128), (3076, 1024, 128),
+                                      (3076, 4096, 128), (6152, 3072, 128), (6152, 768, 128), (1, 1024, 64),
+                                      (193, 3072, 64)])
+def test_linear_tiling_at_the_cells_shapes(m, n, want):
+    """The tile width that fills the 132 SMs best; at one frame and N = 1024 the
+    64-wide tiles (112 of them) over the 128-wide (56)."""
+    assert tlin.tiling(m, n, 132) == want
+
+
+def test_linear_tiling_costs_rounds_of_the_grid():
+    """Each choice is the cheaper by its own cost model, and a shape whose
+    tiles fit one round at either width takes the narrower."""
+    for m in (1, 193, 385, 769, 3076, 6152):
+        for n in (256, 576, 768, 1024, 2304, 3072, 4096):
+            m_tiles = -(-m // tlin.BLOCK_M)
+            cost = {bn: -(-m_tiles * -(-n // bn) // 132) * (bn + tlin.TILE_OVERHEAD) for bn in tlin.BLOCK_NS}
+            assert cost[tlin.tiling(m, n, 132)] == min(cost.values())
+
+
+def test_linear_tiling_constants_match_the_source():
+    src = (build.CSRC / "linear.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kBlockM"]), int(consts["kBlockK"])) == (tlin.BLOCK_M, tlin.BLOCK_K)
+    assert "if (block_n == 128)" in src and "if (block_n == 64)" in src and tlin.BLOCK_NS == (128, 64)
+    assert "linear" in build.SOURCES and "linear_gemm_f32x3_kernel" in src  # `gemm` classes it as a dense layer
+
+
+def test_linear_weight_entry_follows_the_weight():
+    """The remainder is w − trunc(w), exact and below 2^-10 of w; a weight's
+    entry (its checks, remainder and maps) is made again after an in-place
+    update and dropped with the weight's storage. A CPU weight's entry says
+    the kernel does not take it and holds no remainder."""
+    import gc
+
+    w = torch.randn((64, 96))
+    lo = tlin.weight_lo(w)
+    torch.testing.assert_close(lo + tf32_trunc(w), w, rtol=0, atol=0)
+    assert not (tf32_trunc(w).view(torch.int32) & 0x1FFF).any()
+    assert (lo.abs() <= w.abs() * 2.0 ** -10).all()
+    entry = tlin._weight_entry(w)
+    assert tlin._weight_entry(w) is entry and (entry.n, entry.k) == (64, 96)
+    assert not entry.takes and entry.lo is None and entry.dev == -1
+    w.mul_(2)
+    assert tlin._weight_entry(w) is not entry
+    key = id(w.untyped_storage())
+    assert key in tlin._WEIGHTS
+    del w, entry
+    gc.collect()
+    assert key not in tlin._WEIGHTS
+
+
+def test_linear_weight_entry_is_the_storages():
+    """A module's weight and the detached tensors of each fresh
+    ``state_dict()`` (the exported programs' ``fn(est.params, frame)``) share
+    one entry; another view of the storage has its own; an in-place update
+    through either tensor is seen through both; ``param.data = …`` (a dtype
+    round trip) leaves the old storage and its entry behind."""
+    layer = torch.nn.Linear(96, 64)
+    entry = tlin._weight_entry(layer.weight)
+    for _ in range(2):
+        assert tlin._weight_entry(layer.state_dict()["weight"]) is entry
+    half = tlin._weight_entry(layer.weight[:32])
+    assert half is not entry and (half.n, half.k) == (32, 96)
+    assert tlin._weight_entry(layer.weight[:32]) is half
+    with torch.no_grad():
+        layer.state_dict()["weight"].mul_(2)
+    again = tlin._weight_entry(layer.weight)
+    assert again is not entry and tlin._weight_entry(layer.state_dict()["weight"]) is again
+    layer.weight.data = layer.weight.data.half().float()
+    assert tlin._weight_entry(layer.weight) is not again
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_vit_dense_picks_the_operator_by_dtype(monkeypatch, dtype):
+    """``vit.dense`` sends float32 to the f32 GEMM kernel's wrapper and other
+    dtypes (bf16 runs on cuBLAS's tensor-core route) to ``F.linear`` + GELU,
+    with or without the bias; both give ``nn.Linear``'s result."""
+    from depth_estimation_tpu_torch.models import vit
+
+    calls = []
+    monkeypatch.setattr(vit, "linear", lambda *a: calls.append(a) or tlin.linear(*a))
+    layer = torch.nn.Linear(64, 96).to(dtype)
+    x = torch.randn((2, 7, 64), dtype=dtype)
+    for bias, gelu in ((True, False), (True, True), (False, False)):
+        want = F.linear(x, layer.weight, layer.bias if bias else None)
+        got = vit.dense(layer, x, bias=bias, gelu=gelu)
+        assert got.dtype == dtype and torch.equal(got, F.gelu(want) if gelu else want)
+    assert len(calls) == (3 if dtype is torch.float32 else 0)
+
+
+def _linear_3xtf32(x, w, slice_k=32):
+    """The kernel's arithmetic: x split by rounding, w by truncation (w_lo the
+    cached remainder), lo·hi + hi·lo + hi·hi a 32-deep slice at a time, each
+    slice's sum added to the f32 accumulator."""
+    (x_hi, x_lo), (w_hi, w_lo) = _split_a(x), _split_b(w)
+    acc = torch.zeros((x.shape[0], w.shape[0]))
+    for k0 in range(0, x.shape[1], slice_k):
+        sl = slice(k0, k0 + slice_k)
+        acc = acc + (x_lo[:, sl] @ w_hi[:, sl].T + x_hi[:, sl] @ w_lo[:, sl].T + x_hi[:, sl] @ w_hi[:, sl].T)
+    return acc
+
+
+def test_3xtf32_linear_holds_float64_as_f32_does(rng):
+    """At fc2's depth (K = 4096) with ×30 inputs: the split products land
+    within twice plain f32's distance from float64; one TF32 pass does not."""
+    x = torch.from_numpy(30 * rng.standard_normal((64, 4096)).astype(np.float32))
+    w = torch.from_numpy((30 / 64) * rng.standard_normal((48, 4096)).astype(np.float32))
+    exact = x.double() @ w.double().T
+    scale = exact.abs().max()
+
+    def err(y):
+        return ((y.double() - exact).abs().max() / scale).item()
+
+    f32 = err(x @ w.T)
+    assert err(_linear_3xtf32(x, w)) <= max(2 * f32, 1e-6)
+    assert err(tf32_round(x) @ tf32_round(w).T) > 30 * f32
