@@ -1,12 +1,17 @@
 """The control of the correctness check: the reference put in the program's
 place and computed one precision lower, TF32 where the configuration
-states float32, on the maps a run compares (the same frames, the same
-count, at the cell's own size). Its reading has to fail the cell's limit.
+states float32, on the frames a run compares (the same frames, the same
+count, at the cell's own size). Each field of the cell's limits is served
+as the program serves it (``compare.served``: the value, its u8 cast, its
+truncation or its flag), the TF32 reference making its own discrete
+choices, and judged against the reference at full precision, which is
+handed those choices as the program's are (``frame.outputs``). The control
+has to fail one of the cell's limits.
 
     python3 portbench/control.py --workload dpt_large.serve_poisson --seeds 1 2 3
 
-prints one JSON line a seed: the control's reading, the limit, and the
-range of the reference's maps. ``tests/test_portbench_control.py`` runs
+prints one JSON line a seed: each field's reading beside its limit, and the
+range of the reference's values. ``tests/test_portbench_control.py`` runs
 it on the card.
 """
 
@@ -23,7 +28,6 @@ import torch
 
 def readings(spec, workload: str, seeds: List[int], device="cuda", seconds: float = 20.0) -> List[Dict]:
     from portbench import compare, schedule
-    from portbench import spec as specs
     from portbench.frames import Frames
     from portbench.harness import Run
     from portbench.reference import frame as ref
@@ -32,20 +36,30 @@ def readings(spec, workload: str, seeds: List[int], device="cuda", seconds: floa
     out = []
     for seed in seeds:
         run = Run(spec, workload, seed, seconds, trace=False, device=device)
+        limits = compare.fields(run.limits)
         due = schedule.arrivals(run.traffic["arrivals"], seconds, seed)
         idx = sorted(run.sample(len(due) if due is not None else 1000))
         frames = torch.from_numpy(Frames(seed, run.config["input_hw"], run.device).stack(idx)).to(run.device)
         model = ref.build_model(run.config, make_weights(run.config, seed, run.device), run.device)
-        want = ref.depth_maps(model, frames, run.config, tf32=False)
-        low = ref.depth_maps(model, frames, run.config, tf32=True)
-        u8 = run.traffic.get("output", "u8") == "u8"
-        gap = max(compare.u8_gap(ref.wraparound_u8(lo), w) if u8 else compare.max_scaled_err(lo, w)
-                  for lo, w in zip(low, want))
-        out.append({"workload": workload, "seed": seed, "compare": "u8_gap" if u8 else "max_scaled_err",
-                    "control": gap, "limit": specs.limits(workload)["limit"], "maps": len(idx),
-                    "ref_min": float(want.min()), "ref_max": float(want.max()),
-                    "ref_mean": float(want.mean()), "ref_zero_share": float((want == 0).double().mean())})
-        del model, want, low
+        worst = {f["key"]: 0.0 for f in limits.values()}
+        wants = {n: [] for n in limits}
+        for i in range(0, len(idx), 8):
+            block = frames[i:i + 8]
+            low = ref.outputs(model, block, run.config, None, tf32=True)
+            got = {**low, **{n: compare.served(f["compare"], low[n], **f["args"]) for n, f in limits.items()}}
+            want = ref.outputs(model, block, run.config, got, tf32=False)
+            compare.worst_gaps(limits, got, want, worst)
+            for n in limits:
+                wants[n].append(want[n].double())
+        ranges = {}
+        for n, w in wants.items():
+            w = torch.cat(w)
+            ranges[n] = {"min": float(w.min()), "max": float(w.max()), "mean": float(w.mean()),
+                         "zero_share": float((w == 0).double().mean())}
+        out.append({"workload": workload, "seed": seed, "frames": len(idx),
+                    "controls": {f["key"]: {"value": worst[f["key"]], "limit": f["limit"]} for f in limits.values()},
+                    "fails": any(worst[f["key"]] > f["limit"] for f in limits.values()), "reference": ranges})
+        del model, wants
     return out
 
 

@@ -6,18 +6,18 @@ under test through ``Run.estimator()``, warms it at the cell's own shapes,
 calls ``Run.begin_window()`` when set-up is over, drives the window, drains
 what was due in it, calls ``Run.end_window()`` and returns an ``Outcome``.
 Then the peak of device memory is read, the program is freed, the
-reference recomputes a sample of the served maps from the seed, and the
-metrics' readers (``metrics/<name>.py``) read the outcome.
+reference recomputes a sample of the served frames' outputs from the seed
+(each field of the cell's limits, ``compare.fields``), and the metrics'
+readers (``metrics/<name>.py``) read the outcome.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
-import math
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,8 +48,9 @@ class Outcome:
     failed: int
     due: Optional[List[float]]  # when each request or frame was due; None in a closed loop
     done: List[Optional[float]]  # when each one's map was on the host; None if it never was
-    outputs: Dict[int, np.ndarray]  # kept maps by request or frame index
-    output: str  # "f32" or "u8"
+    outputs: Dict[int, Union[np.ndarray, Dict[str, np.ndarray]]]  # kept outputs by request or frame index:
+    # a depth map, or each field the frame serves (each field one shape over the frames)
+    output: str  # a bare map's type: "f32" or "u8"
     rows_per_program: int
     release: Callable[[], None]  # frees the program under test
     gen_lag: Optional[List[float]] = None  # seconds each arrival ran behind its due time
@@ -131,32 +132,39 @@ class Run:
     # -- after the window -----------------------------------------------------
 
     def check(self, out: Outcome) -> Tuple[bool, Dict[str, Dict[str, float]]]:
-        """The served maps against the reference's, recomputed from the seed."""
-        name = self.limits["compare"]
-        if name != ("u8_gap" if out.output == "u8" else "max_scaled_err"):
-            raise ValueError(f"{self.cell['name']}: a limit on {name} for {out.output} maps")
+        """The served outputs against the reference's, recomputed from the
+        seed: each field of the cell's limits, over the kept frames."""
+        limits = compare.fields(self.limits)
+        if "fields" not in self.limits:
+            name = self.limits["compare"]
+            if name != ("u8_gap" if out.output == "u8" else "max_scaled_err"):
+                raise ValueError(f"{self.cell['name']}: a limit on {name} for {out.output} maps")
         kept = sorted(out.outputs)
         if len(kept) > SAMPLE:  # a closed loop keeps every map; draw the sample now
             kept = sorted(kept[i] for i in self.sample(len(kept)))
         weights = make_weights(self.config, self.seed, self.device)
         model = ref.build_model(self.config, weights, self.device)
         del weights
-        worst = 0.0
+        worst = {f["key"]: 0.0 for f in limits.values()}
         for i in range(0, len(kept), 8):
             idx = kept[i:i + 8]
             frames = torch.from_numpy(self.frames.stack(idx)).to(self.device)
-            want = ref.depth_maps(model, frames, self.config)
-            for j, k in enumerate(idx):
-                got = torch.from_numpy(np.asarray(out.outputs[k])).to(self.device)
-                gap = getattr(compare, name)(got, want[j])
-                worst = max(worst, gap if math.isfinite(gap) else math.inf)
+            got = served_fields(out.outputs, idx, self.device)
+            compare.worst_gaps(limits, got, ref.outputs(model, frames, self.config, got), worst)
         del model
-        limit = float(self.limits["limit"])
         checks = {"missing": {"value": out.failed + sum(d is None for d in out.done), "limit": 0},
                   "compared": {"value": len(kept), "limit": min(SAMPLE, len(out.done))},
-                  name: {"value": worst, "limit": limit}}
-        ok = (checks["missing"]["value"] == 0 and len(kept) >= checks["compared"]["limit"] and worst <= limit)
+                  **{f["key"]: {"value": worst[f["key"]], "limit": f["limit"]} for f in limits.values()}}
+        ok = (checks["missing"]["value"] == 0 and len(kept) >= checks["compared"]["limit"]
+              and all(worst[f["key"]] <= f["limit"] for f in limits.values()))
         return ok, checks
+
+
+def served_fields(outputs: Dict, idx: Sequence[int], device) -> Dict[str, torch.Tensor]:
+    """The served fields of frames ``idx``, each stacked over them on
+    ``device``; a bare map is the field ``depth``."""
+    rows = [o if isinstance(o, dict) else {ref.DEPTH: o} for o in (outputs[k] for k in idx)]
+    return {f: torch.from_numpy(np.stack([np.asarray(r[f]) for r in rows])).to(device) for f in rows[0]}
 
 
 @dataclasses.dataclass

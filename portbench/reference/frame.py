@@ -2,12 +2,14 @@
 RGB, /255, bicubic resize to the network size, normalize), the network, the
 bicubic upsample back to the frame's size (depth_midas.py's
 ``F.interpolate(..., mode="bicubic", align_corners=False)``), run in blocks
-of frames with TF32 off unless ``tf32`` asks for it (the control)."""
+of frames with TF32 off unless ``tf32`` asks for it (the control).
+``outputs`` gives the reference's side of every field a frame serves: the
+family's own ``outputs`` where it has one, else the depth map alone."""
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from portbench.reference import family
+
+DEPTH = "depth"  # the field of a frame's depth map where a family names no fields
 
 
 @contextlib.contextmanager
@@ -58,6 +62,21 @@ def depth_maps(model: nn.Module, frames_u8: torch.Tensor, cfg: Dict, tf32: bool 
             up = F.interpolate(pred[:, None], size=tuple(f.shape[1:3]), mode="bicubic", align_corners=False)
             out.append(up[:, 0])
     return torch.cat(out)
+
+
+def outputs(model: nn.Module, frames_u8: torch.Tensor, cfg: Dict, given: Optional[Mapping[str, torch.Tensor]] = None,
+            tf32: bool = False) -> Dict[str, torch.Tensor]:
+    """The reference's value of each output field for (B, H, W, 3) u8 BGR
+    frames, stacked over them. ``given`` holds the program's values of its
+    fields for the same frames (None: the reference makes its own choices,
+    as the control does); a family's ``outputs`` holds the program's
+    discrete choices in it fixed and recomputes what follows from them.
+    Without one, the one field is ``DEPTH``, ``depth_maps``."""
+    fam = family(cfg)
+    if not hasattr(fam, "outputs"):
+        return {DEPTH: depth_maps(model, frames_u8, cfg, tf32=tf32)}
+    with torch.inference_mode(), matmul_precision(tf32):
+        return fam.outputs(model, frames_u8, cfg, given, tf32=tf32)
 
 
 def wraparound_u8(depth: torch.Tensor) -> torch.Tensor:

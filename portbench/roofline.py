@@ -9,10 +9,11 @@ Counting rules (frozen here, whatever implements a kernel):
   TF32 tensor-core rate for float32 inputs, bf16's for bfloat16;
 * a bound is the larger of operations over that rate and bytes over the
   memory's bandwidth; a roofline share is the bound over the measured time;
-* a network's operations are torch's count over the reference, less three
-  quarters of each 1x1 convolution that runs after an x2 upsampling it
-  commutes with (the reference module's ``upsampled_1x1``): the algorithm
-  needs it only at the pixels before the upsampling.
+* a network's operations are torch's count over the reference, each net
+  the program runs at one frame's input to it (the reference module's
+  ``count_inputs``), less three quarters of each 1x1 convolution that runs
+  after an x2 upsampling it commutes with (its ``upsampled_1x1``): the
+  algorithm needs it only at the pixels before the upsampling.
 """
 
 from __future__ import annotations
@@ -67,10 +68,12 @@ def upsample_cost(batch: int, in_hw: Tuple[int, int], out_hw: Tuple[int, int], o
 
 
 def network_flops(cfg: Dict) -> float:
-    """Matmul and convolution operations of one frame through the network
-    of ``cfg`` at its ``net_hw``, counted by torch's FlopCounterMode over the
-    reference model on the meta device (shapes only, no arithmetic), with
-    each upsampled 1x1 convolution counted before its upsampling."""
+    """Matmul and convolution operations of one frame through the nets of
+    ``cfg``, counted by torch's FlopCounterMode over the reference model on
+    the meta device (shapes only, no arithmetic), with each upsampled 1x1
+    convolution counted before its upsampling. The inputs are the family's
+    ``count_inputs(cfg)``, one frame's input to each net it runs, or else
+    the whole model at (1, 3, *net_hw)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from portbench.reference import family
@@ -81,9 +84,10 @@ def network_flops(cfg: Dict) -> float:
         model = ref.build(cfg)
         hooks = [conv.register_forward_hook(lambda mod, args, out: late.append(2.0 * out.numel() * mod.in_channels))
                  for conv in getattr(ref, "upsampled_1x1", lambda m: [])(model)]
-        x = torch.empty(1, 3, *cfg["net_hw"])
+        inputs = ref.count_inputs(cfg) if hasattr(ref, "count_inputs") else {"": (1, 3, *cfg["net_hw"])}
         with FlopCounterMode(display=False) as counter, torch.no_grad():
-            model(x)
+            for net, shape in inputs.items():
+                model.get_submodule(net)(torch.empty(*shape))
     for h in hooks:
         h.remove()
     return float(counter.get_total_flops()) - 0.75 * sum(late)
