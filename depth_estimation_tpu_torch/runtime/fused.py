@@ -24,6 +24,16 @@ finite.
 On the CPU the kernels' plain versions run, on the card the kernels; the
 detector nets run in full f32 (``device.full_f32``) whatever the depth
 network's type.
+
+Spans (``runtime/tracing.py``; host enqueue times, recorded only under
+``tracing.record()`` or ``trace()``): ``FusedFrameRunner.batched`` is one
+``program`` (rows) whose children are ``program.upload`` (frames and
+fallback points to the device), the depth branch's ``program.k2``,
+``program.network`` and ``program.k3``, ``program.face`` (K2 to 128²,
+BlazeFace, decode, NMS), ``program.mesh`` (crop box, crop, FaceMesh+iris,
+circle fit, keep), ``program.outputs`` (the output frame, the iris and
+fallback samples) and ``program.pose`` (K2 to 256², BlazePose, keep, the
+sample at its ears), in the order they are enqueued.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from depth_estimation_tpu_torch.device import full_f32
 from depth_estimation_tpu_torch.ops.kernels.resize import fused_preprocess
 from depth_estimation_tpu_torch.ops.postprocess import to_video_frame_u8
 from depth_estimation_tpu_torch.ops.sampling import bgr_u8_to_rgb01, crop_resize_bilinear_rect, to_int32, u8_to_01
+from depth_estimation_tpu_torch.runtime import tracing
 
 FACE_INPUT, MESH_INPUT, POSE_INPUT, POSE_DETECTOR_INPUT = 128, 192, 256, 224
 
@@ -183,31 +194,35 @@ def make_fused_iris_frame_fn(estimator, detector, in_hw: Tuple[int, int], includ
             raise ValueError(f"frames of {tuple(frames.shape[1:3])} given to the {(h, w)} program")
         with torch.inference_mode(), estimator._numerics(), full_f32():
             depth = estimator.depth_branch(frames)
-            boxes, scores, valid = blazeface_branch(detector._face_det, detector._face_anchors,
-                                                    detector.minDetectionCon, frames)
-            points, mesh_score = mesh_points(detector._mesh, frames, *crop_box(boxes, h, w))
-            mesh = to_int32(points)
-            centers, radii = min_enclosing_circle_torch(mesh[:, iris_idx].float())  # both eyes in one fit
-            l_c, r_c, l_r, r_r = centers[:, 0], centers[:, 1], radii[:, 0], radii[:, 1]
+            with tracing.span("program.face"):
+                boxes, scores, valid = blazeface_branch(detector._face_det, detector._face_anchors,
+                                                        detector.minDetectionCon, frames)
             hit = valid[:, 0]
-            mesh, mesh_score, l_c, l_r, r_c, r_r = (_keep(hit, t, True) for t in (mesh, mesh_score, l_c, l_r,
-                                                                                   r_c, r_r))
-            out = {"depth": depth} if emit_depth_map else {}
-            out.update({
-                "boxes": boxes, "scores": scores, "valid": valid,
-                "mesh": mesh, "mesh_score": mesh_score, "l_center": l_c, "l_radius": l_r,
-                "r_center": r_c, "r_radius": r_r,
-                "vis_u8": to_video_frame_u8(depth),
-                "iris_sample": sample_iris_depth(depth, l_c, r_c),
-                "fallback_sample": sample_pts_depth(depth, fallback_pts),
-            })
+            with tracing.span("program.mesh"):
+                points, mesh_score = mesh_points(detector._mesh, frames, *crop_box(boxes, h, w))
+                mesh = to_int32(points)
+                centers, radii = min_enclosing_circle_torch(mesh[:, iris_idx].float())  # both eyes in one fit
+                l_c, r_c, l_r, r_r = centers[:, 0], centers[:, 1], radii[:, 0], radii[:, 1]
+                mesh, mesh_score, l_c, l_r, r_c, r_r = (_keep(hit, t, True) for t in (mesh, mesh_score, l_c, l_r,
+                                                                                       r_c, r_r))
+            with tracing.span("program.outputs"):
+                out = {"depth": depth} if emit_depth_map else {}
+                out.update({
+                    "boxes": boxes, "scores": scores, "valid": valid,
+                    "mesh": mesh, "mesh_score": mesh_score, "l_center": l_c, "l_radius": l_r,
+                    "r_center": r_c, "r_radius": r_r,
+                    "vis_u8": to_video_frame_u8(depth),
+                    "iris_sample": sample_iris_depth(depth, l_c, r_c),
+                    "fallback_sample": sample_pts_depth(depth, fallback_pts),
+                })
             if include_pose:
-                pose_lm, pose_score = pose_branch(detector._pose, frames)
-                pose_lm, pose_score = _keep(hit, pose_lm, False), _keep(hit, pose_score, False)
-                # this frame's ear pixels, mapped as body_from_fused maps them
-                ears = torch.stack([to_int32(pose_lm[:, ears_idx, 0] * (w / 256.0)),
-                                    to_int32(pose_lm[:, ears_idx, 1] * (h / 256.0))], dim=-1)
-                out.update(pose_lm=pose_lm, pose_score=pose_score, ears_sample=sample_pts_depth(depth, ears))
+                with tracing.span("program.pose"):
+                    pose_lm, pose_score = pose_branch(detector._pose, frames)
+                    pose_lm, pose_score = _keep(hit, pose_lm, False), _keep(hit, pose_score, False)
+                    # this frame's ear pixels, mapped as body_from_fused maps them
+                    ears = torch.stack([to_int32(pose_lm[:, ears_idx, 0] * (w / 256.0)),
+                                        to_int32(pose_lm[:, ears_idx, 1] * (h / 256.0))], dim=-1)
+                    out.update(pose_lm=pose_lm, pose_score=pose_score, ears_sample=sample_pts_depth(depth, ears))
             return out
 
     return fused
@@ -247,11 +262,13 @@ class FusedFrameRunner:
         only."""
         if not self.mesh:
             raise ValueError("batched dispatch requires mesh=True")
-        frames = self.estimator._to_device(imgs_u8)
-        k = frames.shape[0]
-        pts = np.zeros((k, 2, 2), np.int32) if fallback_pts is None else np.asarray(fallback_pts, np.int32)
-        pts = torch.from_numpy(np.ascontiguousarray(pts)).to(frames.device, non_blocking=True)
-        return self._program(frames.shape[1:3])(frames, pts)
+        with tracing.span("program", rows=len(imgs_u8)):
+            with tracing.span("program.upload"):
+                frames = self.estimator._to_device(imgs_u8)
+                k = frames.shape[0]
+                pts = np.zeros((k, 2, 2), np.int32) if fallback_pts is None else np.asarray(fallback_pts, np.int32)
+                pts = torch.from_numpy(np.ascontiguousarray(pts)).to(frames.device, non_blocking=True)
+            return self._program(frames.shape[1:3])(frames, pts)
 
     def __call__(self, img_u8, fallback_pts=None):
         """One (H, W, 3) frame; ``fallback_pts`` an optional (2, 2) array

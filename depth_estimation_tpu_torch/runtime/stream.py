@@ -247,7 +247,14 @@ class FusedVidStream:
     reference's own order): each frame, the depth program and a copy of its
     f32 map to the host (stage ``depth``), ``detector.findIris`` (stage
     ``iris``), ``face.get_depth`` on the host map, and the iris or body
-    path, synchronously."""
+    path, synchronously.
+
+    Spans (``runtime/tracing.py``): the fused loop's ticks record
+    ``stream.read``, ``stream.dispatch`` (the program's ``program`` inside)
+    and ``stream.fetch`` (frame: the tick's first, 0-based; rows), and each
+    frame's host half one ``stream.host_frame`` (frame); in both loops the
+    route taken is a ``stream.iris_path`` or ``stream.body_path``, one a
+    frame, as ``route_counts`` counts them."""
 
     def __init__(self, estimator, detector, face, src=None, output=None, verbose: bool = True, *,
                  fused: bool = True, start_frame: int = 0, retries: int = 2, pipeline_depth: int = 2,
@@ -309,15 +316,17 @@ class FusedVidStream:
                 open_error = True
                 break
             frames = []
-            while len(frames) < K:
-                self.status, frame = self.video.read()
-                if not self.status:
-                    eof = True
-                    break
-                frames.append(frame)
-                self.cnt += 1
-                if self.verbose:
-                    print(f"Frame: {self.cnt}")
+            first = self.cnt
+            with tracing.span("stream.read", frame=first, rows=K):
+                while len(frames) < K:
+                    self.status, frame = self.video.read()
+                    if not self.status:
+                        eof = True
+                        break
+                    frames.append(frame)
+                    self.cnt += 1
+                    if self.verbose:
+                        print(f"Frame: {self.cnt}")
             if not frames:
                 break
             # a tail tick pads with its last frame (one program shape); the
@@ -330,8 +339,9 @@ class FusedVidStream:
                 pts_arr[:] = [[int(pts[0][0]), int(pts[0][1])], [int(pts[1][0]), int(pts[1][1])]]
             c0 = time.process_time()
             t0 = time.perf_counter()
-            fetch = FusedFetch(self._runner.batched(batch, fallback_pts=pts_arr))
-            inflight.append((fetch, frames, self.cnt - len(frames) + 1, had_pts, t0, time.process_time() - c0))
+            with tracing.span("stream.dispatch", frame=first, rows=len(frames)):
+                fetch = FusedFetch(self._runner.batched(batch, fallback_pts=pts_arr))
+            inflight.append((fetch, frames, first + 1, had_pts, t0, time.process_time() - c0))
             if len(inflight) >= self.pipeline_depth:
                 self._complete(inflight.popleft())
         while inflight:
@@ -387,7 +397,8 @@ class FusedVidStream:
         each frame's host half in order."""
         fetch, frames, first_n, had_pts, t0, cpu_d = entry
         c0 = time.process_time()
-        outs = fetch.result()
+        with tracing.span("stream.fetch", frame=first_n - 1, rows=len(frames)):
+            outs = fetch.result()
         self.timer.record_completion("depth", t0, cpu_d + time.process_time() - c0, frames=len(frames))
         for j, frame in enumerate(frames):
             self._host_frame(frame, outs[j], had_pts, first_n + j)
@@ -396,32 +407,33 @@ class FusedVidStream:
         """One frame's host half: the face state, the depth sample (recorded
         before the path choice, midas_mediapipe.py:62), HUD and output. ``n``
         is the frame's 1-based number."""
-        self.frame = frame
-        self.face.mesh = None  # per-frame detection reset (:51)
-        found = bool(out["valid"][0])
-        self.detector.set_fused_mesh(frame, out["mesh"], out["mesh_score"], out["l_center"], out["l_radius"],
-                                     out["r_center"], out["r_radius"], found=found)
-        self._fused_pose = None if found else (out["pose_lm"], out["pose_score"])
-        if not self._device_samples:  # the host samples the fetched map
-            if self.face.mesh is not None or self.face.head_pts is not None:
-                self.face.get_depth(out["depth"])
+        with tracing.span("stream.host_frame", frame=n - 1):
+            self.frame = frame
+            self.face.mesh = None  # per-frame detection reset (:51)
+            found = bool(out["valid"][0])
+            self.detector.set_fused_mesh(frame, out["mesh"], out["mesh_score"], out["l_center"], out["l_radius"],
+                                         out["r_center"], out["r_radius"], found=found)
+            self._fused_pose = None if found else (out["pose_lm"], out["pose_score"])
+            if not self._device_samples:  # the host samples the fetched map
+                if self.face.mesh is not None or self.face.head_pts is not None:
+                    self.face.get_depth(out["depth"])
+                    self.face.rel2abs()
+                sample = None
+            elif found:
+                sample = out["iris_sample"]
+            elif had_pts:
+                sample = out["fallback_sample"]
+            elif self.face.head_pts is not None:
+                # head points appeared only after this frame was dispatched:
+                # sample at the frame's own ears (docs/PARITY.md)
+                sample = out["ears_sample"]
+            else:
+                sample = None
+            if sample is not None:
+                self.face.record_depth(float(sample))
                 self.face.rel2abs()
-            sample = None
-        elif found:
-            sample = out["iris_sample"]
-        elif had_pts:
-            sample = out["fallback_sample"]
-        elif self.face.head_pts is not None:
-            # head points appeared only after this frame was dispatched:
-            # sample at the frame's own ears (docs/PARITY.md)
-            sample = out["ears_sample"]
-        else:
-            sample = None
-        if sample is not None:
-            self.face.record_depth(float(sample))
-            self.face.rel2abs()
-        self._log_frame(n)
-        self._route_frame(merge_gray3(out["vis_u8"]))
+            self._log_frame(n)
+            self._route_frame(merge_gray3(out["vis_u8"]))
 
     def _log_frame(self, n):
         if self.log.enabled:
@@ -436,10 +448,12 @@ class FusedVidStream:
             self.face.mesh = None
         if self.face.mesh is not None:
             self.route_counts["iris"] += 1
-            self._iris_path(vis)
+            with tracing.span("stream.iris_path"):
+                self._iris_path(vis)
         else:
             self.route_counts["body"] += 1
-            self._body_path(vis)
+            with tracing.span("stream.body_path"):
+                self._body_path(vis)
 
     # -- iris path (midas_mediapipe.py:64-94) -------------------------------
 

@@ -159,3 +159,94 @@ def test_stream_spans(tiny_estimator, microbatch):
         children = sorted((s for s in spans if s.parent_id == p.span_id), key=lambda s: s.start)
         assert [s.name for s in children] == ["program.upload", "program.k2", "program.network", "program.k3"]
         assert p.ids["rows"] == microbatch
+
+
+@pytest.fixture(scope="module")
+def fused_detector():
+    """Random detector nets whose BlazeFace hits frames 0, 6 and 7 of
+    ``synthetic:8x48x64`` and misses the others (best scores 0.9080, 0.9017,
+    0.9001, 0.8999, 0.9015, 0.9013, 0.9129, 0.9134 against 0.905): its
+    classifiers scaled down so that scores do not saturate, its box sizes
+    biased so that face crops have an area (chip_smoke's rescale)."""
+    from depth_estimation_tpu_torch.config import CARD
+    from depth_estimation_tpu_torch.detect.person_detector import PersonDetector
+    from depth_estimation_tpu_torch.geometry.face import FaceDet
+
+    det = PersonDetector(FaceDet(20, np.array(CARD)), minDetectionCon=0.905, params={}, device="cpu")
+    sd = {k: v.clone() for k, v in det._face_det.state_dict().items()}
+    for tag in ("16", "8"):
+        sd[f"classifier_{tag}.weight"] *= 0.05
+        sd[f"regressor_{tag}.weight"] *= 0.5
+        sd[f"regressor_{tag}.bias"].view(-1, 16)[:, 2:4] += 0.2 * 128
+    det._face_det.load_state_dict(sd)
+    return det
+
+
+def _fused_stream(estimator, detector):
+    """``FusedVidStream`` over synthetic:8x48x64 at microbatch 4 on a fresh
+    face; returns the stream and the side-by-side frames it wrote."""
+    from depth_estimation_tpu_torch.config import CARD
+    from depth_estimation_tpu_torch.geometry.face import FaceDet
+    from depth_estimation_tpu_torch.runtime.stream import FusedVidStream
+    from depth_estimation_tpu_torch.runtime.video import FrameSink
+
+    class Keep(FrameSink):
+        def __init__(self):
+            self.frames = []
+
+        def write(self, frame):
+            self.frames.append(frame.copy())
+
+    detector.face = face = FaceDet(20, np.array(CARD))
+    sink = Keep()
+    vs = FusedVidStream(estimator, detector, face, src=SyntheticSource(8, 48, 64), output=sink, verbose=False,
+                        microbatch=4)
+    vs.stream()
+    return vs, sink.frames
+
+
+def test_fused_stream_spans(tiny_estimator, fused_detector):
+    """Each tick reads, dispatches (the program inside: upload, the depth
+    branch's K2, network and K3, then the face, mesh, outputs and pose
+    stages) and fetches; each frame's host half is one ``stream.host_frame``
+    holding the route it took, counted as ``route_counts`` counts them."""
+    with tracing.record() as spans:
+        vs, _ = _fused_stream(tiny_estimator, fused_detector)
+    assert vs.route_counts == {"iris": 3, "body": 5}  # both routes run
+    by_id = {s.span_id: s for s in spans}
+    programs = sorted((s for s in spans if s.name == "program"), key=lambda s: s.start)
+    assert len(programs) == 2 and all(p.ids == {"rows": 4} for p in programs)
+    for first, p in zip((0, 4), programs):
+        children = sorted((s for s in spans if s.parent_id == p.span_id), key=lambda s: s.start)
+        assert [s.name for s in children] == ["program.upload", "program.k2", "program.network", "program.k3",
+                                              "program.face", "program.mesh", "program.outputs", "program.pose"]
+        dispatch = by_id[p.parent_id]
+        assert dispatch.name == "stream.dispatch" and dispatch.ids == {"frame": first, "rows": 4}
+        fetch = [s for s in spans if s.name == "stream.fetch" and s.ids["frame"] == first]
+        assert len(fetch) == 1 and fetch[0].start >= dispatch.end and fetch[0].ids["rows"] == 4
+    frames = sorted((s for s in spans if s.name == "stream.host_frame"), key=lambda s: s.start)
+    assert [s.ids["frame"] for s in frames] == list(range(8))
+    routes = {}
+    for s in spans:
+        if s.name in ("stream.iris_path", "stream.body_path"):
+            parent = by_id[s.parent_id]
+            assert parent.name == "stream.host_frame" and parent.start <= s.start <= s.end <= parent.end
+            routes[s.name] = routes.get(s.name, 0) + 1
+    assert routes == {"stream.iris_path": vs.route_counts["iris"], "stream.body_path": vs.route_counts["body"]}
+    assert sum(1 for s in spans if s.name == "stream.read" and s.ids["rows"] == 4) == 3  # the last finds the end
+
+
+def test_fused_stream_records_nothing_when_off(tiny_estimator, fused_detector, monkeypatch):
+    """Off, no span object is made anywhere on the fused path, and the
+    frames written are bitwise those of a recorded run."""
+    with tracing.record():
+        recorded, written_on = _fused_stream(tiny_estimator, fused_detector)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a span was made with recording off")
+    monkeypatch.setattr(tracing, "_On", refused)
+    plain, written_off = _fused_stream(tiny_estimator, fused_detector)
+    assert plain.route_counts == recorded.route_counts
+    assert len(written_off) == len(written_on) == 8
+    for a, b in zip(written_on, written_off):
+        np.testing.assert_array_equal(a, b)
